@@ -10,23 +10,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. environment: the card's name and power limit, torch/CUDA versions,
    which torch ops take uint32 on the card, and the kernels' build
    (``nvcc`` on ``src/repro_torch/kernels/csrc``) with its time;
-2. kernels: each hand-written kernel against its plain PyTorch version
-   on the card, at main-path and ragged shapes, with kernel, plain and
-   one-library-call times;
+2. kernels: each of the six hand-written kernels against its plain
+   PyTorch version on the card, at ragged shapes and at full-width shapes
+   of models the repo supports (qwen3-4b, tinyllama-1.1b,
+   deepseek-v2-lite-16b), with kernel, plain and one-library-call times
+   and its bound;
 3. main path: ``generate_proxy`` on K-means at ``SCALE`` (1.0: 400,000
    x 64 f32 points, 32 centroids) with ``substrate="hopper"``, with every
    kernel's launch counter zeroed just before and read just after; a
-   kernel the path never launched fails the run;
+   kernel of that path (matmul, row moments, bitonic sort) the path never
+   launched fails the run;
 4. checks: the K-means step's outputs, and the tuned proxy's outputs on
    the kernels against its stock-PyTorch form on the same inputs;
-5. main-path shapes: each kernel once more on the inputs the tuned proxy
-   gives it, against its plain version, timed, with its bound;
+5. main-path shapes: each of the path's kernels once more on the inputs
+   the tuned proxy gives it, against its plain version, timed, with its
+   bound;
 6. traces: one ``torch.profiler`` run each of the K-means step and the
-   tuned proxy — wall time, device busy share, top device kernels.
+   tuned proxy — wall time, device busy share, top device kernels;
+7. bench: the kernel entry point's path, with every launch counter
+   zeroed just before and read just after: ``repro_torch.bench.
+   kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
+   ``ops.flash_attention`` and ``ops.moe_dispatch`` at the full-width
+   shapes of phase 2; a kernel of the six never launched fails the run.
 
-The last lines are the kernel table as JSON, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  There is no CPU path: the
-script exits non-zero without a CUDA device, and outside a checkout.
+The last lines are the kernel table as JSON (all six kernels: the first
+three with their launches over phase 3 and their phase-5 times, the other
+three with their launches over phase 7 and their full-width phase-2
+times), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.  There is no CPU path: the script exits non-zero without a CUDA
+device, and outside a checkout.
 """
 from __future__ import annotations
 
@@ -47,12 +59,37 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 #  matmul f32 — the same f32 products summed in another order;
 #  matmul bf16 — one bf16 rounding of an f32 result may flip by an ulp;
 #  row_moments — f32 sums reassociated across threads and splits;
-#  sort — exact (a sort's output is unique).
+#  sort — exact (a sort's output is unique);
+#  rmsnorm f32 — rsqrtf's 2 ulp and a reassociated sum of squares;
+#  rmsnorm bf16 — the final bf16 rounding may flip by an ulp;
+#  flash_attention f32 — the reference's own (tests/test_kernels.py):
+#  online softmax against a dense one;
+#  flash_attention bf16 — held element by element: rtol for the output's
+#  bf16 rounding in both versions (2 x 2^-8, with room), and, since the
+#  kernel rounds p to bf16 before the PV product (2^-8 relative each)
+#  where the plain version stays f32, P_ROUNDING times that element's
+#  attention over |v| (sum_k p|v| / l, the most that rounding can move
+#  it, taken twice); a fixed atol would be as large as the outputs
+#  themselves at 4096 keys (std ~ sqrt(e/n));
+#  moe_dispatch — exact for one-hot masks (one product with 1.0 plus
+#  zeros); a dense mask's f32 sums reassociated, and in bf16 one rounding
+#  of the f32 result.
 TOL = {
     ("matmul", "float32"): dict(rtol=1e-4, atol=1e-4),
     ("matmul", "bfloat16"): dict(rtol=1e-2, atol=1e-2),
     ("row_moments", "float32"): dict(rtol=1e-4, atol=1e-5),
+    ("rmsnorm", "float32"): dict(rtol=1e-5, atol=1e-5),
+    ("rmsnorm", "bfloat16"): dict(rtol=1e-2, atol=1e-2),
+    ("flash_attention", "float32"): dict(rtol=2e-3, atol=2e-4),
+    ("flash_attention", "bfloat16"): dict(rtol=1e-2, atol=1e-5),
+    ("moe_dispatch", "float32"): dict(rtol=1e-4, atol=1e-4),
+    ("moe_dispatch", "bfloat16"): dict(rtol=1e-2, atol=1e-2),
 }
+#: bf16 flash attention's allowance per unit of attention over |v|
+P_ROUNDING = 2.0 ** -7
+
+#: the kernels ``generate_proxy`` on K-means reaches (``kernel_lowerings``)
+MAIN_PATH_KERNELS = ("matmul", "row_moments", "bitonic_sort")
 
 #: the main path's size: K-means at full scale (400,000 x 64 f32 points,
 #: 32 centroids), tuned for the reference generate_proxy's default
@@ -115,6 +152,25 @@ def bound(kind: str, args) -> tuple:
         ops = 2.0 * r * d
         nbytes = x.numel() * x.element_size() + 2 * r * 4
         peak = PEAK_FLOPS["float32"]
+    elif kind == "rmsnorm":  # x², sum, ·rsqrt, ·w: 4 flops an element
+        x, w = args
+        ops = 4.0 * x.numel()
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        peak = PEAK_FLOPS["float32"]
+    elif kind == "flash_attention":  # the pairs the mask keeps
+        from repro_torch.kernels.flash_attention import flops
+
+        q, k, v, causal = args
+        ops = flops(q, k, causal)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
+    elif kind == "moe_dispatch":  # the dense contraction over tokens
+        mask, x = args
+        (t, e, c), d = mask.shape, x.shape[1]
+        ops = 2.0 * t * e * c * d
+        nbytes = (mask.numel() * mask.element_size()
+                  + (x.numel() + e * c * d) * x.element_size())
+        peak = PEAK_FLOPS[str(x.dtype).replace("torch.", "")]
     else:  # bitonic_sort: read n keys, write the padded runs
         x, block = args
         n = x.shape[0]
@@ -171,20 +227,54 @@ def phase_env(torch, dev) -> dict:
         f"(compiled={_build.BUILD_INFO['compiled']})")
     report = Path(_build.BUILD_INFO["path"]).with_name("ptxas.txt")
     if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line.lower():
-                log(f"  ptxas: {line.strip()}")
+        for line in ptxas_summary(report.read_text()):
+            log(f"  ptxas: {line}")
     return support
+
+
+def ptxas_summary(report: str) -> list:
+    """One line per compiled kernel of ``nvcc -Xptxas -v``'s report: its
+    (demangled where ``c++filt`` exists) name, registers and spills.
+    ptxas prints a function's spill line before its register line."""
+    import re
+    import shutil
+
+    kernels, name, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill" in line and name:
+            spill = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                kernels.append((name, m.group(1), spill))
+                name = None
+    names = [k[0] for k in kernels]
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = out.stdout.splitlines()
+    short = [n.removeprefix("void ").replace("(anonymous namespace)::", "")
+             .split("(")[0][:72] for n in names]
+    return [f"{n}: {regs} registers; {spill}"
+            for n, (_, regs, spill) in zip(short, kernels)]
 
 
 def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
     """One kernel against its plain version on the same inputs, timed."""
-    from repro_torch.kernels import bitonic_sort, matmul, ref, rmsnorm
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (bitonic_sort, flash_attention, matmul,
+                                     moe_dispatch, ref, rmsnorm)
     from repro_torch.uint32 import bits, full
 
+    typed = args[1] if kind == "moe_dispatch" else args[0]  # x, not mask
     row = {"kernel": kind, "shape": [list(a.shape) if hasattr(a, "shape")
                                      else a for a in args],
-           "dtype": str(args[0].dtype).replace("torch.", "")}
+           "dtype": str(typed.dtype).replace("torch.", "")}
     if kind == "matmul":
         x, y = args
         got = matmul.matmul(x, y)
@@ -207,6 +297,68 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         row["plain_ms"] = time_ms(torch, lambda: ref.row_moments(x), iters)
         row["library_ms"] = time_ms(
             torch, lambda: torch.var_mean(x, dim=-1, correction=0), iters)
+    elif kind == "rmsnorm":
+        x, w = args
+        got = rmsnorm.rmsnorm(x, w)
+        want = ref.rmsnorm(x, w)
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[(kind, row["dtype"])])
+        row["ms"] = time_ms(torch, lambda: rmsnorm.rmsnorm(x, w), iters)
+        row["plain_ms"] = time_ms(torch, lambda: ref.rmsnorm(x, w), iters)
+        row["library_ms"] = time_ms(
+            torch, lambda: F.rms_norm(x, (x.shape[-1],), w, eps=1e-6), iters)
+    elif kind == "flash_attention":
+        q, k, v, causal = args
+        fa = flash_attention.flash_attention
+        got = fa(q, k, v, causal=causal)
+        want = ref.flash_attention(q, k, v, causal)
+        if not torch.isfinite(got).all():
+            raise fail(f"flash_attention {row['shape']}: non-finite output")
+        diff = (got.float() - want.float()).abs()
+        tol = TOL[(kind, row["dtype"])]
+        limit = tol["atol"] + tol["rtol"] * want.float().abs()
+        if q.dtype == torch.bfloat16:
+            limit += P_ROUNDING * ref.flash_attention(
+                q.float(), k.float(), v.float().abs(), causal)
+        err = diff.max().item()
+        row["err_over_tol"] = (diff / limit).max().item()
+        if row["err_over_tol"] > 1.0:
+            worst = divmod(int((diff / limit).argmax()), q.shape[-1])[0]
+            raise fail(f"flash_attention {row['shape']} {row['dtype']}: "
+                       f"error {row['err_over_tol']:.3g}x its tolerance "
+                       f"(max abs err {err}, worst at (b,s,h) row {worst})")
+        del want, diff, limit
+        row["ms"] = time_ms(torch, lambda: fa(q, k, v, causal=causal), iters)
+        row["plain_ms"] = time_ms(
+            torch, lambda: ref.flash_attention(q, k, v, causal), iters)
+        # SDPA's is_causal keeps k <= q from the top left, as the reference
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        row["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), iters)
+    elif kind == "moe_dispatch":
+        mask, x = args
+        got = moe_dispatch.moe_dispatch(mask, x)
+        want = ref.moe_dispatch(mask, x)
+        one_hot = bool(((mask == 0) | (mask == 1)).all()) and bool(
+            (mask.sum((1, 2)) <= 1).all())
+        row["exact"] = one_hot
+        err = (got.float() - want.float()).abs().max().item()
+        if one_hot and not torch.equal(got, want):
+            raise fail(f"moe_dispatch {row['shape']} {row['dtype']}: a "
+                       f"one-hot mask gave a result that differs from the "
+                       f"plain version (max abs err {err})")
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL[(kind, row["dtype"])])
+        del want
+        row["ms"] = time_ms(torch, lambda: moe_dispatch.moe_dispatch(mask, x),
+                            iters)
+        row["plain_ms"] = time_ms(torch, lambda: ref.moe_dispatch(mask, x),
+                                  iters)
+        mask_x = mask.to(x.dtype)
+        row["library_ms"] = time_ms(
+            torch, lambda: torch.einsum("tec,td->ecd", mask_x, x), iters)
     else:
         x, block = args
         sentinel = bitonic_sort.sort_sentinel(x.dtype).item()
@@ -236,10 +388,85 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
 def fmt_row(r: dict) -> str:
     def f(v):
         return "n/a" if v is None else f"{v:.4f}"
-    return (f"  {r['kernel']:12s} {r['dtype']:9s} {str(r['shape']):28s} "
-            f"err={r['max_abs_err']:.3g} ms={f(r['ms'])} "
+    used = (f" ({r['err_over_tol']:.3f} of tol)" if "err_over_tol" in r
+            else "")
+    return (f"  {r['kernel']:15s} {r['dtype']:9s} {str(r['shape']):42s} "
+            f"err={r['max_abs_err']:.3g}{used} ms={f(r['ms'])} "
             f"plain={f(r['plain_ms'])} lib={f(r['library_ms'])} "
             f"bound={f(r['bound_ms'])} ({r['bound_by']})")
+
+
+def entry_point_cases(torch, dev, full: bool):
+    """(kind, args, timing iterations, headline) of the entry-point
+    kernels: ragged shapes, or (``full``) full-width shapes of models the
+    repo supports — qwen3-4b's d_model 2560 and head_dim 128 over 32 heads
+    (``src/repro/configs/qwen3_4b.py``) at the train_4k length,
+    tinyllama-1.1b's head_dim 64, and deepseek-v2-lite-16b's MoE group
+    (``configs/deepseek_v2_lite_16b.py``: group 4096, 64 experts, d_model
+    2048, 6 experts a token at capacity factor 1.25, so capacity
+    int(4096·6·1.25/64) = 480 by ``models/layers.py:561-563``; the mask
+    routes seeded top-1 ids, as ``make_dispatch_mask`` takes one expert a
+    token).  ``headline`` marks the one full-width case of each kernel
+    that the kernels JSON reports.  Made from a fixed seed, one case at a
+    time."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def routed(t, e, c):  # seeded top-1 ids through make_dispatch_mask
+        ids = torch.randint(0, e, (t,), generator=g, device=dev)
+        return ops.make_dispatch_mask(ids, e, c)
+
+    if not full:
+        for dtype in (f32, bf16):
+            for r, d in ((33, 512), (8, 128), (5, 20_000)):
+                yield "rmsnorm", (randn(r, d, dtype=dtype),
+                                  randn(d, dtype=dtype)), 20, False
+        # x and w of different types: the mixed forms rmsnorm.cu compiles
+        yield "rmsnorm", (randn(33, 512, dtype=bf16), randn(512)), 20, False
+        yield "rmsnorm", (randn(5, 20_000), randn(20_000, dtype=bf16)), 20, \
+            False
+        for shape, causal in (((2, 130, 4, 64), True), ((2, 130, 4, 64), False),
+                              ((1, 257, 2, 128), True),
+                              ((1, 257, 2, 128), False),
+                              ((1, 100, 2, 96), True)):
+            yield "flash_attention", (randn(*shape), randn(*shape),
+                                      randn(*shape), causal), 20, False
+        yield "flash_attention", tuple(randn(2, 130, 4, 64, dtype=bf16)
+                                       for _ in range(3)) + (True,), 20, False
+        kv = (2, 130, 4, 64)  # Sq != Skv under the causal mask
+        yield "flash_attention", (randn(2, 64, 4, 64), randn(*kv),
+                                  randn(*kv), True), 20, False
+        for t, e, c, d in ((64, 8, 16, 32), (128, 4, 64, 16)):
+            for dtype in (f32, bf16):
+                yield "moe_dispatch", (routed(t, e, c),
+                                       randn(t, d, dtype=dtype)), 20, False
+                # a dense mask, made in x's dtype so the cast is exact
+                yield "moe_dispatch", (randn(t, e, c, dtype=dtype),
+                                       randn(t, d, dtype=dtype)), 20, False
+        # a bf16 mask with f32 x (the routed masks above are f32)
+        yield "moe_dispatch", (randn(64, 8, 16, dtype=bf16),
+                               randn(64, 32)), 20, False
+        return
+    for dtype in (f32, bf16):
+        yield "rmsnorm", (randn(32768, 2560, dtype=dtype),
+                          randn(2560, dtype=dtype)), 20, dtype == bf16
+    yield "rmsnorm", (randn(32768 * 32, 128, dtype=bf16),
+                      randn(128, dtype=bf16)), 20, False
+    for shape, dtype, iters, headline in (
+            ((1, 4096, 32, 128), f32, 5, False),
+            ((1, 4096, 32, 128), bf16, 10, True),
+            ((1, 4096, 32, 64), bf16, 10, False)):
+        yield "flash_attention", tuple(randn(*shape, dtype=dtype)
+                                       for _ in range(3)) + (True,), iters, \
+            headline
+    for dtype in (f32, bf16):
+        yield "moe_dispatch", (routed(4096, 64, 480),
+                               randn(4096, 2048, dtype=dtype)), 3, dtype == f32
 
 
 def phase_kernels(torch, dev) -> list:
@@ -269,6 +496,13 @@ def phase_kernels(torch, dev) -> list:
             rows.append(check_kernel(torch, "bitonic_sort", (x, block)))
     for r in rows:
         log(fmt_row(r))
+    for full in (False, True):
+        for kind, args, iters, headline in entry_point_cases(torch, dev,
+                                                             full):
+            r = check_kernel(torch, kind, args, iters)
+            r["headline"] = headline
+            log(fmt_row(r))
+            rows.append(r)
     return rows
 
 
@@ -310,7 +544,7 @@ def phase_main(torch, dev):
             f"weight={p.weight:.3f} batch_size={p.batch_size} "
             f"channels={p.channels} substrate={p.substrate}")
     log(f"launches over the main path: {json.dumps(counts)}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
     if missing:
         raise fail(f"kernels never launched on the main path: {missing}")
     if not 0.0 <= rep.mean_accuracy <= 1.0:
@@ -408,7 +642,8 @@ def phase_main_shapes(torch, dev, pb, counts) -> list:
     with rec.mode:
         pb.build_eval_fn(dev)(0, vals)
     entries = []
-    for name, kernel in ops.KERNELS.items():
+    for name in MAIN_PATH_KERNELS:
+        kernel = ops.KERNELS[name]
         if name not in rec.calls:
             raise fail(f"the tuned proxy gave {name} no input")
         args = rec.calls[name][1]
@@ -418,13 +653,67 @@ def phase_main_shapes(torch, dev, pb, counts) -> list:
             args = (args[0],)
         r = check_kernel(torch, name, tuple(args), iters=50)
         log("main-path shape:" + fmt_row(r)[1:])
-        entries.append({
-            "name": name, "route": "cuda", "source": kernel.source,
-            "replaces": kernel.replaces, "launches": counts[name],
+        entries.append(kernel_entry(name, counts[name], r))
+    return entries
+
+
+def kernel_entry(name: str, launches: int, r: dict) -> dict:
+    """One kernel's item of the kernels JSON line."""
+    from repro_torch.kernels import ops
+
+    kernel = ops.KERNELS[name]
+    return {"name": name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"], "dtype": r["dtype"]})
+            "shape": r["shape"], "dtype": r["dtype"]}
+
+
+def phase_bench(torch, dev, kernel_rows) -> list:
+    """The entry point's path: ``kernels_bench --check`` on the card, then
+    each new kernel's ``ops`` entry point at the full-width shapes, with
+    every launch counter zeroed just before and read just after."""
+    import tempfile
+
+    from repro_torch.bench import kernels_bench
+    from repro_torch.kernels import ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "kernels_bench.json")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        rc = kernels_bench.main(["--check", "--out", out])
+        if rc != 0:
+            raise fail(f"kernels_bench --check returned {rc}")
+        calls = {"rmsnorm": lambda x, w: ops.rmsnorm(x, w),
+                 "flash_attention": lambda q, k, v, c: ops.flash_attention(
+                     q, k, v, causal=c),
+                 "moe_dispatch": lambda m, x: ops.moe_dispatch(m, x)}
+        for kind, args, _, _ in entry_point_cases(torch, dev, full=True):
+            y = calls[kind](*args)
+            if not torch.isfinite(y).all():
+                shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
+                raise fail(f"ops.{kind} at {shapes} gave non-finite values")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        doc = json.loads(Path(out).read_text())
+    log(f"kernels_bench: {len(doc['rows'])} rows, parity "
+        f"{json.dumps(doc['parity'])}, cache {json.dumps(doc['cache'])}, "
+        f"device {json.dumps(doc['device'])}")
+    log(f"launches over the bench phase: {json.dumps(counts)}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise fail(f"kernels never launched in the bench phase: {missing}")
+    entries = []
+    for name in ops.KERNELS:
+        if name in MAIN_PATH_KERNELS:
+            continue
+        rows = [r for r in kernel_rows
+                if r["kernel"] == name and r.get("headline")]
+        if len(rows) != 1:
+            raise fail(f"{name} has {len(rows)} headline rows in phase 2")
+        entries.append(kernel_entry(name, counts[name], rows[0]))
     return entries
 
 
@@ -472,11 +761,15 @@ def phase_trace(torch, dev, name: str, fn) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,main",
+    ap.add_argument("--phases", default="env,kernels,main,bench",
                     help="comma list of env, kernels, main (main includes "
-                         "the checks and main-path shapes)")
+                         "the checks and main-path shapes), bench (needs "
+                         "kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
+    if "bench" in phases and "kernels" not in phases:
+        ap.error("the bench phase reports the kernels phase's full-width "
+                 "times: add kernels")
 
     import torch
 
@@ -495,8 +788,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     phase_env(torch, dev)  # always: the build is every phase's set-up
-    if "kernels" in phases:
-        phase_kernels(torch, dev)
+    kernel_rows = phase_kernels(torch, dev) if "kernels" in phases else []
     entries = []
     if "main" in phases:
         pb, rep, counts, args = phase_main(torch, dev)
@@ -509,8 +801,10 @@ def main(argv=None) -> int:
         vals = pb.lifted_values(dev)
         proxy_fn = pb.build_eval_fn(dev)
         phase_trace(torch, dev, "tuned proxy", lambda: proxy_fn(0, vals))
-        log("kernels: " + ", ".join(f"{e['name']}={e['launches']}"
-                                    for e in entries))
+    if "bench" in phases:
+        entries += phase_bench(torch, dev, kernel_rows)
+    log("kernels: " + ", ".join(f"{e['name']}={e['launches']}"
+                                for e in entries))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card_line())

@@ -19,7 +19,10 @@ sort, data_movement, control, collective.
 * each hand-written kernel is one custom op with its own class and
   formula: ``repro_torch::matmul`` is dot with 2·M·N·K flops,
   ``repro_torch::row_moments`` reduce, ``repro_torch::bitonic_sort_blocks``
-  sort.
+  sort, ``repro_torch::rmsnorm`` reduce (the fused norm's reduction, the
+  reduce rule's flops), ``repro_torch::flash_attention`` dot with 4·D
+  flops per (query, key) pair the mask keeps, ``repro_torch::moe_dispatch``
+  dot with 2·T·E·C·D flops.
 * peak memory: the CUDA allocator's peak over the profiled run, less what
   was allocated before it, plus the arguments (0.0 on the CPU).
 
@@ -38,6 +41,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.device import synchronize
+from repro_torch.kernels.flash_attention import flops as _flash_flops
 
 # ---------------------------------------------------------------------------
 # ATen op classification (the reference's classify_opcode taxonomy)
@@ -104,7 +108,8 @@ _TRANSCENDENTAL = {
 }
 #: the port's hand-written kernels, as the custom ops a profile sees
 KERNEL_OPS = {"matmul": "dot", "row_moments": "reduce",
-              "bitonic_sort_blocks": "sort"}
+              "bitonic_sort_blocks": "sort", "rmsnorm": "reduce",
+              "flash_attention": "dot", "moe_dispatch": "dot"}
 
 
 def classify_op(func) -> str:
@@ -136,8 +141,14 @@ def _nbytes(ts) -> int:
 
 
 def _dot_flops(func, args, kwargs, out) -> float:
-    if func.namespace == "repro_torch":  # matmul: x (M,K) @ y (K,N)
-        (m, k), n = args[0].shape, args[1].shape[1]
+    if func.namespace == "repro_torch":
+        name = func.overloadpacket.__name__
+        if name == "flash_attention":  # q, k, v, causal
+            return _flash_flops(args[0], args[1], args[3])
+        if name == "moe_dispatch":  # mask (T,E,C), x (T,D)
+            (t, e, c), d = args[0].shape, args[1].shape[1]
+            return 2.0 * t * e * c * d
+        (m, k), n = args[0].shape, args[1].shape[1]  # matmul (M,K) @ (K,N)
         return 2.0 * m * n * k
     formula = _flop_counter.flop_registry.get(func.overloadpacket)
     if formula is not None:

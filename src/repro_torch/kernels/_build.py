@@ -24,8 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("matmul.cu", "row_moments.cu", "bitonic_sort.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("matmul.cu", "row_moments.cu", "bitonic_sort.cu", "rmsnorm.cu",
+           "flash_attention.cu", "moe_dispatch.cu")
+HEADERS = ("common.cuh", "gemm_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"
@@ -38,6 +39,7 @@ DTYPE_CODES: Dict[torch.dtype, int] = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C entry points: name -> argtypes (every one returns a CUDA status)
 SIGNATURES = {
@@ -45,6 +47,10 @@ SIGNATURES = {
     "repro_row_moments": [_I, _P, _P, _P, _P, _L, _L, _I, _P],
     "repro_bitonic_tile": [_I, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "repro_bitonic_global": [_I, _P, _L, _I, _I, _I, _P],
+    "repro_rmsnorm": [_I, _I, _P, _P, _P, _L, _L, _F, _P],
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _L, _L, _L, _L, _I, _F,
+                              _I, _P],
+    "repro_moe_dispatch": [_I, _I, _P, _P, _P, _L, _L, _L, _L, _P],
 }
 
 #: what the last build did (seconds, whether it compiled, ptxas report)
@@ -133,7 +139,7 @@ def call(name: str, *args) -> None:
     lib = library()
     status = getattr(lib, name)(*args)
     if status != 0:
-        what = ("unsupported dtype code" if status < 0
+        what = ("unsupported dtype code or size" if status < 0
                 else lib.repro_error_string(status).decode())
         raise RuntimeError(f"{name}: launch failed ({status}): {what}")
 

@@ -4,7 +4,10 @@
 A tensor on the CPU runs each kernel's plain version; a CUDA tensor
 launches the kernel or raises.  ``sort`` keeps the reference composition:
 bitonic runs at the clamped block length, then rank-merge rounds that pad
-an odd run count with the dtype's sentinel.
+an odd run count with the dtype's sentinel.  ``flash_attention`` takes the
+``(B, S, H, D)`` or ``(S, D)`` layout in one launch.  The reference's TPU
+tile sizes (``bm/bk/bn``, ``block_rows``, ``bq/bk``) are not arguments
+here: each kernel picks its own tiles.
 """
 from __future__ import annotations
 
@@ -13,13 +16,19 @@ from typing import Callable, Dict, NamedTuple
 import torch
 
 from repro_torch.kernels import bitonic_sort as _bs
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import moe_dispatch as _md
 from repro_torch.kernels import rmsnorm as _rm
+from repro_torch.kernels.moe_dispatch import make_dispatch_mask  # noqa: F401
 from repro_torch.uint32 import full
 
 matmul = _mm.matmul
 row_moments = _rm.row_moments
+rmsnorm = _rm.rmsnorm
 bitonic_sort_blocks = _bs.bitonic_sort_blocks
+flash_attention = _fa.flash_attention
+moe_dispatch = _md.moe_dispatch
 
 
 class Kernel(NamedTuple):
@@ -42,6 +51,14 @@ KERNELS: Dict[str, Kernel] = {
     "bitonic_sort": Kernel(_bs.bitonic_sort_blocks,
                            "src/repro_torch/kernels/csrc/bitonic_sort.cu",
                            "src/repro/kernels/bitonic_sort.py:74"),
+    "rmsnorm": Kernel(_rm.rmsnorm, "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:73"),
+    "flash_attention": Kernel(
+        _fa.flash_attention, "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:88"),
+    "moe_dispatch": Kernel(_md.moe_dispatch,
+                           "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+                           "src/repro/kernels/moe_dispatch.py:32"),
 }
 
 

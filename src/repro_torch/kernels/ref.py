@@ -3,6 +3,7 @@
 what a kernel wrapper runs for a tensor on the CPU."""
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -21,6 +22,15 @@ def row_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.mean(xf, dim=-1), torch.mean(xf * xf, dim=-1)
 
 
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """``x·rsqrt(mean(x²) + eps)·w`` over the last dim in f32, cast to
+    x's dtype."""
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * w.to(torch.float32)).to(x.dtype)
+
+
 def sort(x: torch.Tensor) -> torch.Tensor:
     return narrow(torch.sort(widen(x)).values, x.dtype)
 
@@ -35,3 +45,33 @@ def sort_blocks(x: torch.Tensor, block: int, sentinel) -> torch.Tensor:
         x = torch.cat([x, full((pad,), sentinel, x.dtype, x.device)])
     runs = torch.sort(widen(x).reshape(-1, block), dim=-1).values
     return narrow(runs.reshape(-1), x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Dense softmax attention in f32, (B, S, H, D) or (S, D) layouts.
+
+    The causal mask keeps ``k_idx <= q_idx`` with both counted from 0
+    (top-left aligned, also when Sq != Skv); masked scores are -1e30."""
+    single = q.ndim == 2
+    if single:
+        q, k, v = q[None, :, None], k[None, :, None], v[None, :, None]
+    D = q.shape[-1]
+    Sq, Skv = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(D)
+    if causal:
+        mask = (torch.arange(Skv, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    out = out.to(q.dtype)
+    return out[0, :, 0] if single else out
+
+
+def moe_dispatch(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """mask (T, E, C), x (T, D) -> (E, C, D) expert buckets, in f32, cast
+    to x's dtype."""
+    return torch.einsum("tec,td->ecd", mask.to(torch.float32),
+                        x.to(torch.float32)).to(x.dtype)

@@ -1,13 +1,12 @@
-"""Row moments — the Statistics motif's hot loop on the GPU.
+"""Row moments and fused RMSNorm — the Statistics hot loops on the GPU.
 
 Wraps ``csrc/row_moments.cu`` (which replaces ``row_moments`` ->
 ``_moments_kernel`` in ``repro/kernels/rmsnorm.py``) as the custom op
-``repro_torch::row_moments``, so a signature profile sees one
-reduce-class op.  A tensor on the CPU runs the plain version
-(``ref.row_moments``); a CUDA tensor launches the kernel or raises.
-
-The reference's fused ``rmsnorm`` kernel in the same file is not on the
-``generate_proxy`` path and is not ported yet.
+``repro_torch::row_moments``, and ``csrc/rmsnorm.cu`` (which replaces
+``rmsnorm`` -> ``_rmsnorm_kernel`` in the same file) as
+``repro_torch::rmsnorm``, so a signature profile sees one reduce-class op
+for each.  A tensor on the CPU runs the plain version (``ref``); a CUDA
+tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -75,3 +74,49 @@ def row_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 row_moments.launches = 0
+
+
+def _check_rmsnorm(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.ndim < 1 or x.shape[-1] == 0:
+        raise ValueError(f"rmsnorm wants a non-empty last dim, got "
+                         f"{tuple(x.shape)}")
+    if w.ndim != 1 or w.shape[0] != x.shape[-1]:
+        raise ValueError(f"rmsnorm wants w of shape ({x.shape[-1]},), got "
+                         f"{tuple(w.shape)}")
+    if x.dtype not in DTYPES or w.dtype not in DTYPES:
+        raise TypeError(f"rmsnorm wants f32 or bf16, got {x.dtype} and "
+                        f"{w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"operands on {x.device} and {w.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rmsnorm wants contiguous operands")
+
+
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
+def _rmsnorm_op(x: torch.Tensor, w: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    _check_rmsnorm(x, w)
+    if x.device.type == "cpu":
+        return ref.rmsnorm(x, w, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    rows = x.numel() // d
+    if rows == 0:
+        return out
+    _build.call("repro_rmsnorm", _build.dtype_code(x, DTYPES),
+                _build.dtype_code(w, DTYPES), x.data_ptr(), w.data_ptr(),
+                out.data_ptr(), rows, d, eps, _build.stream_ptr(x.device))
+    rmsnorm.launches += 1
+    return out
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """``x (..., D) · rsqrt(mean(x²) + eps) · w`` in f32, one read of x,
+    cast to x's dtype."""
+    return torch.ops.repro_torch.rmsnorm(x, w, eps)
+
+
+rmsnorm.launches = 0

@@ -8,7 +8,13 @@ JAX, so it also runs on a GPU host that has none:
 
 Tolerances as in ``test_torch_kernels.py``: f32 products
 ``rtol=1e-4, atol=1e-4``, bf16 products ``rtol=1e-2, atol=1e-2``, row
-moments ``rtol=1e-4, atol=1e-5``; sorts are exact.
+moments ``rtol=1e-4, atol=1e-5``; sorts are exact.  As in
+``chip_smoke.py``: rmsnorm f32 ``rtol=1e-5, atol=1e-5`` (rsqrtf and a
+reassociated sum), bf16 ``1e-2``; flash attention the reference's
+``rtol=2e-3, atol=2e-4`` in f32 and ``5e-2`` in bf16 (sound at these
+sequence lengths, where outputs are about 0.2 and more); MoE dispatch
+exact on one-hot masks, ``rtol=atol=1e-4`` on a dense mask with f32 x and
+``1e-2`` with bf16 x.
 """
 import pytest
 import torch
@@ -61,4 +67,75 @@ def test_cuda_wrappers_count_one_launch_per_call(cuda_device):
     tops.row_moments(x)
     tops.sort(x.reshape(-1), block=256)
     assert tops.launch_counts() == {"matmul": 1, "row_moments": 1,
-                                    "bitonic_sort": 1}
+                                    "bitonic_sort": 1, "rmsnorm": 0,
+                                    "flash_attention": 0, "moe_dispatch": 0}
+    tops.rmsnorm(x, x[0])
+    tops.flash_attention(x, x, x)
+    tops.moe_dispatch(tops.make_dispatch_mask(
+        torch.arange(64, device=cuda_device) % 4, 4, 16), x)
+    assert tops.launch_counts() == {"matmul": 1, "row_moments": 1,
+                                    "bitonic_sort": 1, "rmsnorm": 1,
+                                    "flash_attention": 1, "moe_dispatch": 1}
+
+
+RMSNORM_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+               "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-4),
+             "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
+    # warp-per-row, block-per-row and the two-read form for long rows; w in
+    # x's type and in the other one (the mixed forms rmsnorm.cu compiles)
+    for rows, d in [(8, 128), (33, 512), (7, 2560), (5, 20_000)]:
+        x = to_torch(np_rand(5, (rows, d), "float32"), dtype).to(cuda_device)
+        for w_dtype in ("float32", "bfloat16"):
+            w = to_torch(np_rand(6, (d,), "float32"), w_dtype).to(cuda_device)
+            torch.testing.assert_close(tops.rmsnorm(x, w).float(),
+                                       tref.rmsnorm(x, w).float(),
+                                       **RMSNORM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
+    # D = 64 and 128 compiled forms, D = 96 the generic one; ragged Skv;
+    # Sq != Skv under the causal mask
+    for qs, kvs in [((2, 130, 4, 64), (2, 130, 4, 64)),
+                    ((1, 257, 2, 128), (1, 257, 2, 128)),
+                    ((1, 100, 2, 96), (1, 100, 2, 96)),
+                    ((2, 64, 4, 64), (2, 130, 4, 64))]:
+        q = to_torch(np_rand(7, qs, "float32"), dtype).to(cuda_device)
+        k = to_torch(np_rand(8, kvs, "float32"), dtype).to(cuda_device)
+        v = to_torch(np_rand(9, kvs, "float32"), dtype).to(cuda_device)
+        for causal in (True, False):
+            torch.testing.assert_close(
+                tops.flash_attention(q, k, v, causal=causal).float(),
+                tref.flash_attention(q, k, v, causal).float(),
+                **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_dispatch_matches_plain(cuda_device, dtype):
+    for t, e, c, d in [(64, 8, 16, 32), (128, 4, 64, 16), (300, 5, 70, 130)]:
+        ids = torch.from_numpy(np_rand(10, (t,), "uint32") % e).to(
+            torch.int64).to(cuda_device)
+        mask = tops.make_dispatch_mask(ids, e, c)
+        x = to_torch(np_rand(11, (t, d), "float32"), dtype).to(cuda_device)
+        assert torch.equal(tops.moe_dispatch(mask, x),
+                           tref.moe_dispatch(mask, x))
+        # dense masks in both types (the mixed forms moe_dispatch.cu
+        # compiles); the op casts the mask to x's type first, as the
+        # reference's kernel does, so the plain version gets it cast
+        tol = (dict(rtol=1e-4, atol=1e-4) if dtype == "float32"
+               else dict(rtol=1e-2, atol=1e-2))
+        for mask_dtype in ("float32", "bfloat16"):
+            dense = to_torch(np_rand(12, (t, e, c), "float32"),
+                             mask_dtype).to(cuda_device)
+            torch.testing.assert_close(tops.moe_dispatch(dense, x).float(),
+                                       tref.moe_dispatch(dense.to(x.dtype),
+                                                         x).float(),
+                                       **tol)

@@ -190,5 +190,9 @@ def test_plain_path_launches_nothing():
     tops.matmul(torch.randn(8, 4), torch.randn(4, 3))
     tops.row_moments(torch.randn(4, 8))
     tops.sort(torch.randn(100), block=16)
+    tops.rmsnorm(torch.randn(4, 8), torch.randn(8))
+    tops.flash_attention(*(torch.randn(1, 5, 2, 8) for _ in range(3)))
+    tops.moe_dispatch(torch.ones(6, 2, 3), torch.randn(6, 4))
     assert tops.launch_counts() == {"matmul": 0, "row_moments": 0,
-                                    "bitonic_sort": 0}
+                                    "bitonic_sort": 0, "rmsnorm": 0,
+                                    "flash_attention": 0, "moe_dispatch": 0}
