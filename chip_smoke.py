@@ -14,7 +14,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    PyTorch version on the card, at ragged shapes and at full-width shapes
    of models the repo supports (qwen3-4b, tinyllama-1.1b,
    deepseek-v2-lite-16b), with kernel, plain and one-library-call times
-   and its bound;
+   and its bound; each MoE dispatch case logs the form it took (wgmma for
+   bf16 x, simt for f32 x);
 3. main path: ``generate_proxy`` on K-means at ``SCALE`` (1.0: 400,000
    x 64 f32 points, 32 centroids) with ``substrate="hopper"``, with every
    kernel's launch counter zeroed just before and read just after; a
@@ -31,7 +32,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
    ``ops.flash_attention`` and ``ops.moe_dispatch`` at the full-width
-   shapes of phase 2; a kernel of the six never launched fails the run.
+   shapes of phase 2; a kernel of the six never launched, or MoE
+   dispatch's tensor-core form never launched, fails the run.
 
 The last lines are the kernel table as JSON (all six kernels: the first
 three with their launches over phase 3 and their phase-5 times, the other
@@ -88,6 +90,12 @@ TOL = {
 #: bf16 flash attention's allowance per unit of attention over |v|
 P_ROUNDING = 2.0 ** -7
 
+#: small MoE dispatch shapes (T, E, C, D): aligned one-tile, C and D
+#: ragged inside 16-byte rows across two tiles each, a T that is not a
+#: multiple of the 64-token slab, and C, D that rule out vector loads
+MOE_SMALL = ((64, 8, 16, 32), (128, 4, 64, 16), (200, 3, 136, 264),
+             (300, 5, 70, 130), (37, 3, 5, 24))
+
 #: the kernels ``generate_proxy`` on K-means reaches (``kernel_lowerings``)
 MAIN_PATH_KERNELS = ("matmul", "row_moments", "bitonic_sort")
 
@@ -135,7 +143,9 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound(kind: str, args) -> tuple:
-    """(bound_ms, bound_by) for one kernel call, from its inputs."""
+    """(bound_ms, bound_by, bytes_ms) for one kernel call, from its
+    inputs: bytes_ms is the byte time alone, which bound_ms takes when
+    it is the larger."""
     import math
 
     if kind == "matmul":
@@ -182,7 +192,7 @@ def bound(kind: str, args) -> tuple:
         peak = PEAK_FLOPS["float32"]
     t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops > t_bytes else "bytes")
+            "operations" if t_ops > t_bytes else "bytes", t_bytes * 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +245,15 @@ def phase_env(torch, dev) -> dict:
 def ptxas_summary(report: str) -> list:
     """One line per compiled kernel of ``nvcc -Xptxas -v``'s report: its
     (demangled where ``c++filt`` exists) name, registers and spills.
-    ptxas prints a function's spill line before its register line."""
+    ptxas prints a function's spill line before its register line.  Then
+    every warning line, such as ptxas serialising wgmma."""
     import re
     import shutil
 
-    kernels, name, spill = [], None, ""
+    kernels, name, spill, notes = [], None, "", []
     for line in report.splitlines():
+        if "Performance Loss" in line or "warning" in line:
+            notes.append(line.strip())
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name, spill = m.group(1), ""
@@ -260,7 +273,7 @@ def ptxas_summary(report: str) -> list:
     short = [n.removeprefix("void ").replace("(anonymous namespace)::", "")
              .split("(")[0][:72] for n in names]
     return [f"{n}: {regs} registers; {spill}"
-            for n, (_, regs, spill) in zip(short, kernels)]
+            for n, (_, regs, spill) in zip(short, kernels)] + notes
 
 
 def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
@@ -339,8 +352,17 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
                 qt, kt, vt, is_causal=causal), iters)
     elif kind == "moe_dispatch":
         mask, x = args
+        row["form"] = moe_dispatch.form(x)
+        row["mask_dtype"] = str(mask.dtype).replace("torch.", "")
+        before = dict(moe_dispatch.moe_dispatch.forms)
         got = moe_dispatch.moe_dispatch(mask, x)
-        want = ref.moe_dispatch(mask, x)
+        taken = [f for f, n in moe_dispatch.moe_dispatch.forms.items()
+                 if n != before[f]]
+        if taken != [row["form"]]:
+            raise fail(f"moe_dispatch {row['shape']}: expected the "
+                       f"{row['form']} form, launched {taken}")
+        # the op casts the mask to x's type first, as the reference does
+        want = ref.moe_dispatch(mask.to(x.dtype), x)
         one_hot = bool(((mask == 0) | (mask == 1)).all()) and bool(
             (mask.sum((1, 2)) <= 1).all())
         row["exact"] = one_hot
@@ -381,7 +403,7 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         row["library_ms"] = None if x.dtype == torch.uint32 else time_ms(
             torch, lambda: torch.sort(padded.view(-1, block), dim=-1), iters)
     row["max_abs_err"] = err
-    row["bound_ms"], row["bound_by"] = bound(kind, args)
+    row["bound_ms"], row["bound_by"], row["bytes_ms"] = bound(kind, args)
     return row
 
 
@@ -390,10 +412,13 @@ def fmt_row(r: dict) -> str:
         return "n/a" if v is None else f"{v:.4f}"
     used = (f" ({r['err_over_tol']:.3f} of tol)" if "err_over_tol" in r
             else "")
+    form = (f" [{r['mask_dtype']} mask, {r['form']}]" if "form" in r
+            else "")
     return (f"  {r['kernel']:15s} {r['dtype']:9s} {str(r['shape']):42s} "
             f"err={r['max_abs_err']:.3g}{used} ms={f(r['ms'])} "
             f"plain={f(r['plain_ms'])} lib={f(r['library_ms'])} "
-            f"bound={f(r['bound_ms'])} ({r['bound_by']})")
+            f"bound={f(r['bound_ms'])} ({r['bound_by']}; bytes "
+            f"{f(r['bytes_ms'])}){form}")
 
 
 def entry_point_cases(torch, dev, full: bool):
@@ -441,16 +466,28 @@ def entry_point_cases(torch, dev, full: bool):
         kv = (2, 130, 4, 64)  # Sq != Skv under the causal mask
         yield "flash_attention", (randn(2, 64, 4, 64), randn(*kv),
                                   randn(*kv), True), 20, False
-        for t, e, c, d in ((64, 8, 16, 32), (128, 4, 64, 16)):
+        for t, e, c, d in MOE_SMALL:
             for dtype in (f32, bf16):
                 yield "moe_dispatch", (routed(t, e, c),
                                        randn(t, d, dtype=dtype)), 20, False
                 # a dense mask, made in x's dtype so the cast is exact
                 yield "moe_dispatch", (randn(t, e, c, dtype=dtype),
                                        randn(t, d, dtype=dtype)), 20, False
-        # a bf16 mask with f32 x (the routed masks above are f32)
+            # bf16 x with a one-hot bf16 mask and with a dense f32 one
+            yield "moe_dispatch", (routed(t, e, c).to(bf16),
+                                   randn(t, d, dtype=bf16)), 20, False
+            yield "moe_dispatch", (randn(t, e, c), randn(t, d, dtype=bf16)), \
+                20, False
+        # a bf16 mask with f32 x
         yield "moe_dispatch", (randn(64, 8, 16, dtype=bf16),
                                randn(64, 32)), 20, False
+        # base pointers off the 16-byte grid: the wgmma form's scalar loads
+        # on shapes whose rows would allow vectors
+        t, e, c, d = 128, 4, 64, 16
+        for mask_dtype in (f32, bf16):
+            yield "moe_dispatch", (
+                randn(t * e * c + 1, dtype=mask_dtype)[1:].view(t, e, c),
+                randn(t * d + 1, dtype=bf16)[1:].view(t, d)), 20, False
         return
     for dtype in (f32, bf16):
         yield "rmsnorm", (randn(32768, 2560, dtype=dtype),
@@ -464,9 +501,13 @@ def entry_point_cases(torch, dev, full: bool):
         yield "flash_attention", tuple(randn(*shape, dtype=dtype)
                                        for _ in range(3)) + (True,), iters, \
             headline
-    for dtype in (f32, bf16):
-        yield "moe_dispatch", (routed(4096, 64, 480),
-                               randn(4096, 2048, dtype=dtype)), 3, dtype == f32
+    # bf16 x with the routed f32 mask (the headline), the same mask cast
+    # to bf16 first (like for like with einsum on the cast mask), f32
+    mask = routed(4096, 64, 480)
+    yield "moe_dispatch", (mask, randn(4096, 2048, dtype=bf16)), 20, True
+    yield "moe_dispatch", (mask.to(bf16), randn(4096, 2048, dtype=bf16)), 20, \
+        False
+    yield "moe_dispatch", (mask, randn(4096, 2048)), 3, False
 
 
 def phase_kernels(torch, dev) -> list:
@@ -697,14 +738,18 @@ def phase_bench(torch, dev, kernel_rows) -> list:
                 raise fail(f"ops.{kind} at {shapes} gave non-finite values")
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        forms = dict(ops.moe_dispatch.forms)
         doc = json.loads(Path(out).read_text())
     log(f"kernels_bench: {len(doc['rows'])} rows, parity "
         f"{json.dumps(doc['parity'])}, cache {json.dumps(doc['cache'])}, "
         f"device {json.dumps(doc['device'])}")
     log(f"launches over the bench phase: {json.dumps(counts)}")
+    log(f"moe_dispatch launches by form: {json.dumps(forms)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise fail(f"kernels never launched in the bench phase: {missing}")
+    if forms["wgmma"] == 0:
+        raise fail("moe_dispatch's tensor-core form never launched")
     entries = []
     for name in ops.KERNELS:
         if name in MAIN_PATH_KERNELS:

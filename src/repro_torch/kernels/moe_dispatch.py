@@ -6,7 +6,10 @@ op ``repro_torch::moe_dispatch``, so a signature profile sees one
 dot-class op with 2·T·E·C·D flops.  As in the reference the mask is cast
 to x's dtype before the product.  A tensor on the CPU runs the plain
 version (``ref.moe_dispatch``); a CUDA tensor launches the kernel or
-raises.  :func:`make_dispatch_mask` is plain torch, as in the reference.
+raises.  :func:`form` names the kernel's form (tensor cores for bf16 x,
+the SIMT tile loop for f32 x; the kernel picks its own load widths) and
+``moe_dispatch.forms`` counts launches per form.  :func:`make_dispatch_mask` is plain torch, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -16,6 +19,13 @@ from repro_torch.kernels import _build, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_EXPERTS = 65535  # the grid's third dimension
+FORMS = ("wgmma", "simt")
+
+
+def form(x: torch.Tensor) -> str:
+    """The kernel form a CUDA call on x runs: "wgmma" (bf16 x, tensor
+    cores) or "simt" (f32 x, full-f32 FMA)."""
+    return "wgmma" if x.dtype == torch.bfloat16 else "simt"
 
 
 def _check(mask: torch.Tensor, x: torch.Tensor) -> None:
@@ -49,6 +59,7 @@ def _moe_dispatch_op(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                 _build.dtype_code(x, DTYPES), mask.data_ptr(), x.data_ptr(),
                 out.data_ptr(), t, e, c, d, _build.stream_ptr(x.device))
     moe_dispatch.launches += 1
+    moe_dispatch.forms[form(x)] += 1
     return out
 
 
@@ -59,6 +70,7 @@ def moe_dispatch(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 moe_dispatch.launches = 0
+moe_dispatch.forms = dict.fromkeys(FORMS, 0)
 
 
 def make_dispatch_mask(expert_ids: torch.Tensor, num_experts: int,

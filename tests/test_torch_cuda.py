@@ -14,7 +14,7 @@ reassociated sum), bf16 ``1e-2``; flash attention the reference's
 ``rtol=2e-3, atol=2e-4`` in f32 and ``5e-2`` in bf16 (sound at these
 sequence lengths, where outputs are about 0.2 and more); MoE dispatch
 exact on one-hot masks, ``rtol=atol=1e-4`` on a dense mask with f32 x and
-``1e-2`` with bf16 x.
+``1e-2`` with bf16 x (one bf16 rounding of the f32 sum).
 """
 import pytest
 import torch
@@ -120,22 +120,48 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_moe_dispatch_matches_plain(cuda_device, dtype):
-    for t, e, c, d in [(64, 8, 16, 32), (128, 4, 64, 16), (300, 5, 70, 130)]:
+    # aligned one-tile shapes; C and D ragged across two tiles with 16-byte
+    # rows and T not a multiple of the 64-token slab; C and D that rule
+    # out vector loads.  bf16 x runs the wgmma form, f32 x the SIMT one.
+    tops.reset_launches()
+    calls = 0
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == "float32"
+           else dict(rtol=1e-2, atol=1e-2))
+    for t, e, c, d in [(64, 8, 16, 32), (128, 4, 64, 16), (200, 3, 136, 264),
+                       (300, 5, 70, 130), (37, 3, 5, 24)]:
         ids = torch.from_numpy(np_rand(10, (t,), "uint32") % e).to(
             torch.int64).to(cuda_device)
-        mask = tops.make_dispatch_mask(ids, e, c)
         x = to_torch(np_rand(11, (t, d), "float32"), dtype).to(cuda_device)
-        assert torch.equal(tops.moe_dispatch(mask, x),
-                           tref.moe_dispatch(mask, x))
-        # dense masks in both types (the mixed forms moe_dispatch.cu
-        # compiles); the op casts the mask to x's type first, as the
-        # reference's kernel does, so the plain version gets it cast
-        tol = (dict(rtol=1e-4, atol=1e-4) if dtype == "float32"
-               else dict(rtol=1e-2, atol=1e-2))
         for mask_dtype in ("float32", "bfloat16"):
+            # one-hot: exact, with either mask type
+            mask = tops.make_dispatch_mask(ids, e, c).to(
+                getattr(torch, mask_dtype))
+            assert torch.equal(tops.moe_dispatch(mask, x),
+                               tref.moe_dispatch(mask, x))
+            # dense masks in both types (the mixed forms moe_dispatch.cu
+            # compiles); the op casts the mask to x's type first, as the
+            # reference's kernel does, so the plain version gets it cast
             dense = to_torch(np_rand(12, (t, e, c), "float32"),
                              mask_dtype).to(cuda_device)
             torch.testing.assert_close(tops.moe_dispatch(dense, x).float(),
                                        tref.moe_dispatch(dense.to(x.dtype),
                                                          x).float(),
                                        **tol)
+            calls += 2
+    # base pointers off the 16-byte grid: scalar loads where the rows
+    # alone would allow vectors
+    t, e, c, d = 128, 4, 64, 16
+    for mask_dtype in ("float32", "bfloat16"):
+        buf = to_torch(np_rand(13, (t * e * c + 1,), "float32"),
+                       mask_dtype).to(cuda_device)
+        dense = buf[1:].view(t, e, c)
+        xb = to_torch(np_rand(14, (t * d + 1,), "float32"),
+                      dtype).to(cuda_device)[1:].view(t, d)
+        torch.testing.assert_close(tops.moe_dispatch(dense, xb).float(),
+                                   tref.moe_dispatch(dense.to(xb.dtype),
+                                                     xb).float(),
+                                   **tol)
+        calls += 1
+    form = "wgmma" if dtype == "bfloat16" else "simt"
+    assert tops.moe_dispatch.forms == {f: calls if f == form else 0
+                                       for f in ("wgmma", "simt")}
