@@ -14,8 +14,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    PyTorch version on the card, at ragged shapes and at full-width shapes
    of models the repo supports (qwen3-4b, tinyllama-1.1b,
    deepseek-v2-lite-16b), with kernel, plain and one-library-call times
-   and its bound; each MoE dispatch case logs the form it took (wgmma for
-   bf16 x, simt for f32 x);
+   and its bound; each flash attention and MoE dispatch case logs the
+   form it took (wgmma for bf16 at head width 64 or 128 and for bf16 x,
+   simt otherwise);
 3. main path: ``generate_proxy`` on K-means at ``SCALE`` (1.0: 400,000
    x 64 f32 points, 32 centroids) with ``substrate="hopper"``, with every
    kernel's launch counter zeroed just before and read just after; a
@@ -32,8 +33,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
    ``ops.flash_attention`` and ``ops.moe_dispatch`` at the full-width
-   shapes of phase 2; a kernel of the six never launched, or MoE
-   dispatch's tensor-core form never launched, fails the run.
+   shapes of phase 2; a kernel of the six never launched, or the
+   tensor-core form of flash attention or of MoE dispatch never launched,
+   fails the run.
 
 The last lines are the kernel table as JSON (all six kernels: the first
 three with their launches over phase 3 and their phase-5 times, the other
@@ -276,6 +278,18 @@ def ptxas_summary(report: str) -> list:
             for n, (_, regs, spill) in zip(short, kernels)] + notes
 
 
+def launch_form(row: dict, wrapper, call):
+    """``call()``, failing unless it launched the form ``row["form"]``
+    names, once, on the wrapper's per-form counts."""
+    before = dict(wrapper.forms)
+    out = call()
+    taken = [f for f, n in wrapper.forms.items() if n != before[f]]
+    if taken != [row["form"]]:
+        raise fail(f"{row['kernel']} {row['shape']}: expected the "
+                   f"{row['form']} form, launched {taken}")
+    return out
+
+
 def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
     """One kernel against its plain version on the same inputs, timed."""
     import torch.nn.functional as F
@@ -324,7 +338,8 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
     elif kind == "flash_attention":
         q, k, v, causal = args
         fa = flash_attention.flash_attention
-        got = fa(q, k, v, causal=causal)
+        row["form"] = flash_attention.form(q)
+        got = launch_form(row, fa, lambda: fa(q, k, v, causal=causal))
         want = ref.flash_attention(q, k, v, causal)
         if not torch.isfinite(got).all():
             raise fail(f"flash_attention {row['shape']}: non-finite output")
@@ -354,13 +369,8 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         mask, x = args
         row["form"] = moe_dispatch.form(x)
         row["mask_dtype"] = str(mask.dtype).replace("torch.", "")
-        before = dict(moe_dispatch.moe_dispatch.forms)
-        got = moe_dispatch.moe_dispatch(mask, x)
-        taken = [f for f, n in moe_dispatch.moe_dispatch.forms.items()
-                 if n != before[f]]
-        if taken != [row["form"]]:
-            raise fail(f"moe_dispatch {row['shape']}: expected the "
-                       f"{row['form']} form, launched {taken}")
+        got = launch_form(row, moe_dispatch.moe_dispatch,
+                          lambda: moe_dispatch.moe_dispatch(mask, x))
         # the op casts the mask to x's type first, as the reference does
         want = ref.moe_dispatch(mask.to(x.dtype), x)
         one_hot = bool(((mask == 0) | (mask == 1)).all()) and bool(
@@ -412,8 +422,10 @@ def fmt_row(r: dict) -> str:
         return "n/a" if v is None else f"{v:.4f}"
     used = (f" ({r['err_over_tol']:.3f} of tol)" if "err_over_tol" in r
             else "")
-    form = (f" [{r['mask_dtype']} mask, {r['form']}]" if "form" in r
-            else "")
+    if "mask_dtype" in r:
+        form = f" [{r['mask_dtype']} mask, {r['form']}]"
+    else:
+        form = f" [{r['form']}]" if "form" in r else ""
     return (f"  {r['kernel']:15s} {r['dtype']:9s} {str(r['shape']):42s} "
             f"err={r['max_abs_err']:.3g}{used} ms={f(r['ms'])} "
             f"plain={f(r['plain_ms'])} lib={f(r['library_ms'])} "
@@ -466,6 +478,24 @@ def entry_point_cases(torch, dev, full: bool):
         kv = (2, 130, 4, 64)  # Sq != Skv under the causal mask
         yield "flash_attention", (randn(2, 64, 4, 64), randn(*kv),
                                   randn(*kv), True), 20, False
+        # bf16: the wgmma form at D = 64 and 128 (ragged, both masks, Sq
+        # below and above Skv), the SIMT form at D = 96
+        for qs, kvs, causal in (((2, 130, 4, 64), (2, 130, 4, 64), False),
+                                ((1, 257, 2, 128), (1, 257, 2, 128), True),
+                                ((1, 257, 2, 128), (1, 257, 2, 128), False),
+                                ((2, 64, 4, 64), (2, 130, 4, 64), True),
+                                ((1, 300, 2, 128), (1, 200, 2, 128), True),
+                                ((1, 130, 2, 128), (1, 257, 2, 128), False),
+                                ((1, 100, 2, 96), (1, 100, 2, 96), True)):
+            yield "flash_attention", (randn(*qs, dtype=bf16),
+                                      randn(*kvs, dtype=bf16),
+                                      randn(*kvs, dtype=bf16), causal), 20, \
+                False
+        # base pointers off the 16-byte grid: the wgmma form's scalar loads
+        n = 1 * 257 * 2 * 128
+        yield "flash_attention", tuple(
+            randn(n + 1, dtype=bf16)[1:].view(1, 257, 2, 128)
+            for _ in range(3)) + (True,), 20, False
         for t, e, c, d in MOE_SMALL:
             for dtype in (f32, bf16):
                 yield "moe_dispatch", (routed(t, e, c),
@@ -738,18 +768,21 @@ def phase_bench(torch, dev, kernel_rows) -> list:
                 raise fail(f"ops.{kind} at {shapes} gave non-finite values")
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        forms = dict(ops.moe_dispatch.forms)
+        forms = {name: dict(k.wrapper.forms) for name, k in ops.KERNELS.items()
+                 if hasattr(k.wrapper, "forms")}
         doc = json.loads(Path(out).read_text())
     log(f"kernels_bench: {len(doc['rows'])} rows, parity "
         f"{json.dumps(doc['parity'])}, cache {json.dumps(doc['cache'])}, "
         f"device {json.dumps(doc['device'])}")
     log(f"launches over the bench phase: {json.dumps(counts)}")
-    log(f"moe_dispatch launches by form: {json.dumps(forms)}")
+    for name, by_form in forms.items():
+        log(f"{name} launches by form: {json.dumps(by_form)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise fail(f"kernels never launched in the bench phase: {missing}")
-    if forms["wgmma"] == 0:
-        raise fail("moe_dispatch's tensor-core form never launched")
+    for name, by_form in forms.items():
+        if by_form["wgmma"] == 0:
+            raise fail(f"{name}'s tensor-core form never launched")
     entries = []
     for name in ops.KERNELS:
         if name in MAIN_PATH_KERNELS:

@@ -13,23 +13,75 @@
 // products, not the reads, are the floor: 67 TFLOP/s in f32, 989 in bf16
 // on the tensor cores.
 //
-// Design: one 256-thread block per (b·h, 64-query tile), all B·H heads in
-// one launch, reading q, k, v and writing out straight through the
-// (B, S, H, D) strides, so no transposed copy is made; offsets are 64-bit.
-// The q tile is staged once in shared memory as f32; 64-key tiles of k
-// and v stream through shared memory.  Each thread owns a 4x4 block of
-// the 64x64 score tile and a 4x(D/16) block of the accumulator: scores
-// are f32 dot products scaled by 1/sqrt(D); masked scores are -1e30 and
-// their weights exact zeros (a padded key past Skv never wins); the row
-// max and sum go through a 16-lane shuffle; p goes through shared memory
-// for the PV product, rounded first to v's type as the reference does.
-// The running m, l and accumulator stay f32 in registers.  Under the
-// causal mask (key index <= query index, both from 0: top-left aligned,
-// also when Sq != Skv) the key tiles wholly past a query tile are never
-// read, and the heaviest query tiles are launched first.  D is a template
-// constant for 64 and 128; any other D up to 256 takes a generic form.
-// SIMT FMA throughout: no wgmma yet, a simple kernel that is right first.
+// Both forms keep the reference's function: scores in f32 scaled by
+// 1/sqrt(D); masked scores never win and weigh an exact 0 (a padded key
+// past Skv included); the causal mask keeps key index <= query index, both
+// from 0 (top-left aligned, also when Sq != Skv); the running max m,
+// denominator l and accumulator stay f32; p is rounded to v's type before
+// the PV product while l sums the unrounded p; the output is the
+// accumulator over max(l, 1e-30), cast to q's type.  One block per (b·h,
+// query tile), all B·H heads in one launch, reading q, k, v and writing
+// out through the (B, S, H, D) strides (no transposed copy; 64-bit
+// offsets); under the causal mask the key tiles wholly past a query tile
+// are never read, and the heaviest query tiles are launched first.
+//
+// bf16 at D = 64 and 128: wgmma on the tensor cores (wgmma.cuh).  A block
+// of two warpgroups takes 128 queries, 64 a warpgroup.  The q tile is
+// loaded once; tiles of BK keys of k and v (64 at D = 64, 128 at D = 128)
+// stream through a ring of 3 slots filled with 16-byte cp.async, two
+// tiles ahead of the tensor cores, one barrier a tile.  Per key tile each
+// warpgroup runs S = Q·Kᵀ (m64nBKk16, D/16 steps, both operands from
+// shared memory), the online softmax on the S fragment in registers, and
+// O += P·V (m64nDk16, BK/16 steps, P from registers).  What the design
+// does about each hazard:
+//  1. K-major operands: q and k rows are contiguous along d, the
+//     contraction of Q·Kᵀ, so both are staged K-major (wgmma.cuh's
+//     128-byte swizzle with 64 d values a row, imm-trans 0, SBO 1024
+//     bytes, k16 steps 32 bytes apart inside an atom, the second 64-wide
+//     d atom rows·128 bytes on).  v is contiguous along d, the N of P·V:
+//     MN-major, read transposed (imm-trans-b 1), LBO the d-atom stride.
+//  2. Instruction shapes: m64nBKk16 with both operands in shared memory
+//     for S, m64nDk16 with A from registers for O (N = 64 or 128 each).
+//  3. P as an A operand: the S accumulator's columns 16j..16j+15 are the
+//     j-th k16 step's A fragment, packed pairwise (d[8j + 2r],
+//     d[8j + 2r + 1]) into register r after rounding to bf16; P never
+//     goes through shared memory.
+//  4. The async proxy and register fences: every tile is written by
+//     cp.async or st.shared, then __syncthreads() and fence.proxy.async
+//     precede its wgmma; the S, O and P registers are fenced around each
+//     group and P stays live until its group retires.
+//  5. Ragged edges: keys past Skv and queries past Sq are zero-filled in
+//     the loads (cp.async with source size 0); masked scores become -inf,
+//     so their p is exactly 0 even in a row whose whole tile is masked,
+//     and the running max stays finite (it starts at -1e30).  Rows past
+//     Sq are computed but not stored.  Only the tiles on the causal
+//     diagonal and past Skv are masked.
+//  6. Alignment: at D = 64 or 128 a row is a multiple of 128 bytes, so a
+//     16-byte load is legal wherever the base pointer is 16-byte aligned;
+//     the launch checks each base and the kernel keeps a scalar path.
+//  7. Shared memory and registers: 225 KB a block at D = 128 (q 32 KB, k
+//     and v 64 KB a slot), 65 KB at D = 64, so every launch raises the
+//     function's dynamic limit; a refused launch returns its status.  A
+//     thread holds BK/2 S, D/2 O and BK/4 P registers; one block of 256
+//     threads an SM leaves 255 a thread (ptxas reports spills).
+//  8. The query tile: 128 rows here, 64 in the SIMT form; the wrapper
+//     counts the grid with the form's own tile.
+// Left out on purpose: TMA, warp specialisation and setmaxnreg, clusters,
+// a persistent scheduler, and overlapping one tile's softmax with the
+// next tile's products inside a warpgroup.
+//
+// f32, and bf16 at any other D up to 256: SIMT FMA.  One 256-thread block
+// per (b·h, 64-query tile); the q tile is staged once in shared memory as
+// f32 and 64-key tiles of k and v stream through shared memory.  Each
+// thread owns a 4x4 block of the 64x64 score tile and a 4x(D/16) block of
+// the accumulator; the row max and sum go through a 16-lane shuffle; p
+// goes through shared memory for the PV product.  D is a template
+// constant for 64 and 128 in f32; any other D takes a generic form.  The
+// reference product is full f32, so no TF32.
+#include <math_constants.h>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -213,13 +265,289 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return launch_status();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D,
-             float scale, bool causal, cudaStream_t s) {
-  if (D == 64) return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
-  if (D == 128) return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
-  return launch<T, 0>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+namespace tc {
+
+constexpr int BQ = 128;  // queries a block: two warpgroups of 64
+constexpr int THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Tiles by head width, the fastest of those timed on the card (PERF.md
+// §6): 64 keys a tile at D = 64, 128 at D = 128, in a ring of 3 slots, one
+// block an SM (two blocks of the D = 64 form an SM were no faster).
+template <int D>
+struct Shape {
+  static constexpr int BK = D == 64 ? 64 : 128;  // keys a tile
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;  // one of k, v
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // k then v
+  static constexpr int SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES + 1024;
+  static_assert(D == 64 || D == 128, "the wgmma form takes D = 64 or 128");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ROWS rows of D bf16 (row r at src + (r0 + r)·stride) -> a 128-byte-
+// swizzled tile at smem (shared-window address) / smem_p (generic), zero
+// past row n.  16-byte cp.async when the base is 16-byte aligned (vec),
+// else 2-byte loads and 16-byte stores.  Neighbouring threads take
+// neighbouring 16-byte chunks of a row.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(uint32_t smem, uint8_t* smem_p,
+                                          const __nv_bfloat16* src,
+                                          int64_t stride, int64_t r0,
+                                          int64_t n, bool vec, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  static_assert(ROWS * CPR % THREADS == 0, "tile shape");
+#pragma unroll
+  for (int j = 0; j < ROWS * CPR / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool in = r0 + r < n;
+    const __nv_bfloat16* p = src + (in ? r0 + r : 0) * stride + c;
+    const uint32_t off = wg::sw128_offset(c, r, ROWS);
+    if (vec) {
+      wg::cp_async16(smem + off, p, in);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (in) {
+        const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[e] = h[2 * e] | (static_cast<uint32_t>(h[2 * e + 1]) << 16);
+      }
+      *reinterpret_cast<uint4*>(smem_p + off) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma(const __nv_bfloat16* __restrict__ q,
+            const __nv_bfloat16* __restrict__ k,
+            const __nv_bfloat16* __restrict__ v,
+            __nv_bfloat16* __restrict__ out, int64_t Sq, int64_t Skv,
+            int64_t H, float scale_log2, int causal, int q_vec, int k_vec,
+            int v_vec) {
+  using S = Shape<D>;
+  constexpr int BK = S::BK;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t qs = (raw + 1023u) & ~1023u;  // every atom 1024-aligned
+  uint8_t* const qs_p = smem_raw + (qs - raw);
+  const uint32_t ring = qs + S::Q_BYTES;
+  uint8_t* const ring_p = qs_p + S::Q_BYTES;
+
+  const int tid = threadIdx.x;
+  const int warpgroup = tid / 128;
+  const int t = tid % 128;
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
+  const int64_t wq0 = q0 + warpgroup * 64;  // this warpgroup's first query
+  const int64_t row = H * D;  // stride between sequence positions
+  const __nv_bfloat16* qb = q + (b * Sq * H + h) * D;
+  const __nv_bfloat16* kb = k + (b * Skv * H + h) * D;
+  const __nv_bfloat16* vb = v + (b * Skv * H + h) * D;
+  __nv_bfloat16* ob = out + (b * Sq * H + h) * D;
+
+  // under the causal mask, key tiles starting past the block's last query
+  // are wholly masked
+  const int64_t kv_end = causal ? (Skv < q0 + BQ ? Skv : q0 + BQ) : Skv;
+  const int KT = static_cast<int>((kv_end + BK - 1) / BK);
+
+  auto load_kv = [&](int kt) {
+    const int s = kt % STAGES;
+    const uint32_t ks = ring + s * S::STAGE_BYTES;
+    uint8_t* const ks_p = ring_p + s * S::STAGE_BYTES;
+    load_rows<BK, D>(ks, ks_p, kb, row, int64_t{kt} * BK, Skv, k_vec, tid);
+    load_rows<BK, D>(ks + S::KV_BYTES, ks_p + S::KV_BYTES, vb, row,
+                     int64_t{kt} * BK, Skv, v_vec, tid);
+  };
+
+  // the ring: tile kt sits in slot kt % STAGES; the q tile rides in the
+  // first group
+  load_rows<BQ, D>(qs, qs_p, qb, row, q0, Sq, q_vec, tid);
+  for (int kt = 0; kt < STAGES - 1; ++kt) {
+    if (kt < KT) load_kv(kt);
+    wg::cp_async_commit();
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {-1e30f, -1e30f};  // running max, in log2 units
+  float l[2] = {0.0f, 0.0f};      // this thread's share of the row sums
+
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % STAGES;
+    wg::cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt
+    __syncthreads();  // everyone's, and both warpgroups are done with kt-1
+    wg::fence_proxy_async();
+    // refill the slot tile kt-1 used
+    if (kt + STAGES - 1 < KT) load_kv(kt + STAGES - 1);
+    wg::cp_async_commit();
+
+    const uint32_t ks = ring + s * S::STAGE_BYTES;
+    const uint32_t vs = ks + S::KV_BYTES;
+
+    // S = Q·Kᵀ: raw dot products, 64 x BK for this warpgroup
+    float sc[BK / 2];
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = wg::desc_sw128(
+          qs + warpgroup * 64 * 128 + wg::kmajor_k16(kk, BQ), 16,
+          wg::GROUP_BYTES);
+      const uint64_t db =
+          wg::desc_sw128(ks + wg::kmajor_k16(kk, BK), 16, wg::GROUP_BYTES);
+      wg::mma_ss_k<BK>(sc, da, db, kk > 0);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_operands(sc);
+
+    // mask: only the tile past Skv and the tiles on the causal diagonal
+    const int64_t k0 = int64_t{kt} * BK;
+    if (k0 + BK > Skv || (causal && k0 + BK - 1 > wq0)) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int64_t qi = wq0 + wg::frag_row(t, hh);
+        const int64_t lim = causal ? (qi + 1 < Skv ? qi + 1 : Skv) : Skv;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (k0 + wg::frag_col(t, i) + j >= lim)
+              sc[4 * i + 2 * hh + j] = -CUDART_INF_F;
+      }
+    }
+
+    // online softmax on the fragment: a row lies in the 4 threads of a quad
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+        mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * hh], sc[4 * i + 2 * hh + 1]));
+      // scale > 0, so the max of the scaled scores is the scaled max; a
+      // wholly masked row keeps its finite m
+      const float m_new = fmaxf(m[hh], quad_max(mx) * scale_log2);
+      const float corr = ex2(m[hh] - m_new);
+      m[hh] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float& e = sc[4 * i + 2 * hh + j];
+          e = ex2(fmaf(e, scale_log2, -m_new));  // -inf -> exactly 0
+          sum += e;
+        }
+      }
+      l[hh] = l[hh] * corr + sum;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i + 2 * hh] *= corr;
+        o[4 * i + 2 * hh + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[j][r] = pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+
+    // O += P·V
+    wg::fence_operands(o);
+    wg::fence_operands(pa);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint64_t db = wg::desc_sw128(vs + j * 16 * 128, BK * 128,
+                                         wg::GROUP_BYTES);
+      wg::mma_rs_mn<D>(o, pa[j], db);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_operands(o);
+    wg::fence_operands(pa);
+  }
+
+  // epilogue: the row sums over the quad, then O / max(l, 1e-30) straight
+  // from the fragment, bf16 pairs, rows past Sq dropped
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lsum = l[hh];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    const float inv_l = 1.0f / fmaxf(lsum, 1e-30f);
+    const int64_t qi = wq0 + wg::frag_row(t, hh);
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qi * row + wg::frag_col(t, i)) =
+          __floats2bfloat162_rn(o[4 * i + 2 * hh] * inv_l,
+                                o[4 * i + 2 * hh + 1] * inv_l);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
+           int64_t Sq, int64_t Skv, int64_t H, float scale, bool causal,
+           cudaStream_t s) {
+  // rows are D·2 bytes apart (a multiple of 16), so a base decides
+  const auto aligned = [](const void* p) {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(p) % 16 == 0);
+  };
+  // per launch, so it holds on whichever device is current
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Shape<D>::SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(static_cast<unsigned>(B * H),
+                  static_cast<unsigned>((Sq + BQ - 1) / BQ));
+  flash_wgmma<D><<<grid, THREADS, Shape<D>::SMEM_BYTES, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      Sq, Skv, H, scale * LOG2E, causal, aligned(q), aligned(k), aligned(v));
+  return launch_status();
+}
+
+}  // namespace tc
+
+int dispatch_f32(const void* q, const void* k, const void* v, void* out,
+                 int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D,
+                 float scale, bool causal, cudaStream_t s) {
+  if (D == 64) return launch<float, 64>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  if (D == 128) return launch<float, 128>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  return launch<float, 0>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+}
+
+int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
+                  int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D,
+                  float scale, bool causal, cudaStream_t s) {
+  if (D == 64) return tc::launch<64>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
+  if (D == 128) return tc::launch<128>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
+  return launch<__nv_bfloat16, 0>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
 }
 
 }  // namespace
@@ -233,9 +561,9 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return dispatch<float>(q, k, v, out, B, Sq, Skv, H, D, scale, causal != 0, s);
+      return dispatch_f32(q, k, v, out, B, Sq, Skv, H, D, scale, causal != 0, s);
     case kBFloat16:
-      return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, D, scale, causal != 0, s);
+      return dispatch_bf16(q, k, v, out, B, Sq, Skv, H, D, scale, causal != 0, s);
     default:
       return -1;
   }

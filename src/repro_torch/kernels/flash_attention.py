@@ -8,7 +8,10 @@ launch covers every batch and head, where the reference vmaps its
 single-slice kernel.  A signature profile sees one dot-class op with
 4·D flops for every (query, key) pair the mask keeps.  A tensor on the
 CPU runs the plain version (``ref.flash_attention``); a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  :func:`form` names the kernel's form
+(tensor cores for bf16 at head width 64 or 128, SIMT FMA otherwise; the
+kernel picks its own load widths) and ``flash_attention.forms`` counts
+launches per form.
 
 The causal mask keeps ``k_idx <= q_idx`` with both indices counted from
 0, top-left aligned as in the reference, also when ``Sq != Skv``.
@@ -26,12 +29,23 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: (``flash_attention.py``), mirrored in ``csrc/flash_attention.cu``
 NEG_INF = -1e30
 L_FLOOR = 1e-30
-#: widest head the kernel takes (64 and 128 have their own compiled form)
+#: widest head the kernel takes (64 and 128 have their own compiled forms)
 MAX_D = 256
-#: query tile of the kernel; the grid's second dimension counts them
-BQ = 64
+#: head widths of the tensor-core form (bf16 only)
+WGMMA_D = (64, 128)
+FORMS = ("wgmma", "simt")
+#: query tile of each form; the grid's second dimension counts them
+BQ = {"wgmma": 128, "simt": 64}
 MAX_GRID_Y = 65535
 MAX_GRID_X = (1 << 31) - 1
+
+
+def form(q: torch.Tensor) -> str:
+    """The kernel form a CUDA call on q runs: "wgmma" (bf16 at head width
+    64 or 128, tensor cores) or "simt" (f32, or bf16 at any other width:
+    FMA in f32)."""
+    return ("wgmma" if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_D
+            else "simt")
 
 
 def kept_pairs(sq: int, skv: int, causal: bool) -> int:
@@ -85,7 +99,8 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if -(-sq // BQ) > MAX_GRID_Y or b * h > MAX_GRID_X:
+    kind = form(q)
+    if -(-sq // BQ[kind]) > MAX_GRID_Y or b * h > MAX_GRID_X:
         raise ValueError(f"flash_attention: {tuple(q.shape)} exceeds the "
                          f"launch grid")
     _build.call("repro_flash_attention", _build.dtype_code(q, DTYPES),
@@ -93,6 +108,7 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 b, sq, k.shape[1], h, d, 1.0 / math.sqrt(d), int(causal),
                 _build.stream_ptr(q.device))
     flash_attention.launches += 1
+    flash_attention.forms[kind] += 1
     return out
 
 
@@ -108,6 +124,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.forms = dict.fromkeys(FORMS, 0)
 
 
 def flash_attention_single(q: torch.Tensor, k: torch.Tensor,

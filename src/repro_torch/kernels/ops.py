@@ -69,7 +69,8 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.wrapper.launches = 0
-    _md.moe_dispatch.forms = dict.fromkeys(_md.FORMS, 0)
+        if hasattr(k.wrapper, "forms"):  # launches per form
+            k.wrapper.forms = dict.fromkeys(k.wrapper.forms, 0)
 
 
 def sort(x: torch.Tensor, *, block: int = 1024) -> torch.Tensor:

@@ -16,12 +16,15 @@ sequence lengths, where outputs are about 0.2 and more); MoE dispatch
 exact on one-hot masks, ``rtol=atol=1e-4`` on a dense mask with f32 x and
 ``1e-2`` with bf16 x (one bf16 rounding of the f32 sum).
 """
+import math
+
 import pytest
 import torch
 
 from torch_parity import cuda_device, np_rand, to_torch  # noqa: F401
 
 from repro_torch.kernels import bitonic_sort as tbs
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -101,20 +104,31 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
-    # D = 64 and 128 compiled forms, D = 96 the generic one; ragged Skv;
-    # Sq != Skv under the causal mask
-    for qs, kvs in [((2, 130, 4, 64), (2, 130, 4, 64)),
-                    ((1, 257, 2, 128), (1, 257, 2, 128)),
-                    ((1, 100, 2, 96), (1, 100, 2, 96)),
-                    ((2, 64, 4, 64), (2, 130, 4, 64))]:
-        q = to_torch(np_rand(7, qs, "float32"), dtype).to(cuda_device)
-        k = to_torch(np_rand(8, kvs, "float32"), dtype).to(cuda_device)
-        v = to_torch(np_rand(9, kvs, "float32"), dtype).to(cuda_device)
+    # D = 64 and 128: the wgmma form in bf16, compiled SIMT forms in f32;
+    # D = 96 the generic SIMT form; ragged Skv; Sq below and above Skv
+    # under the causal mask; bases off the 16-byte grid (scalar loads)
+    tops.reset_launches()
+    calls = {"wgmma": 0, "simt": 0}
+    for qs, kvs, offset in [((2, 130, 4, 64), (2, 130, 4, 64), 0),
+                            ((1, 257, 2, 128), (1, 257, 2, 128), 0),
+                            ((1, 100, 2, 96), (1, 100, 2, 96), 0),
+                            ((2, 64, 4, 64), (2, 130, 4, 64), 0),
+                            ((1, 300, 2, 128), (1, 200, 2, 128), 0),
+                            ((1, 257, 2, 128), (1, 257, 2, 128), 1)]:
+        q, k, v = (to_torch(np_rand(seed, (offset + n,), "float32"), dtype)
+                   .to(cuda_device)[offset:].view(shape)
+                   for seed, shape, n in ((7, qs, math.prod(qs)),
+                                          (8, kvs, math.prod(kvs)),
+                                          (9, kvs, math.prod(kvs))))
         for causal in (True, False):
             torch.testing.assert_close(
                 tops.flash_attention(q, k, v, causal=causal).float(),
                 tref.flash_attention(q, k, v, causal).float(),
                 **FLASH_TOL[dtype])
+            calls[tfa.form(q)] += 1
+    assert tops.flash_attention.forms == calls
+    # bf16 at D = 64 and 128 took the tensor cores, everything else SIMT
+    assert calls["wgmma"] == (10 if dtype == "bfloat16" else 0)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,97 @@
+"""Flash attention's tensor-core form, on the CPU: the bf16 shapes the card
+checks against the JAX package, the wrapper's choice of form, its
+per-form launch counts, and its query tiles against the CUDA source.
+
+The kernel itself (``csrc/flash_attention.cu``) runs only on the card,
+where ``test_torch_cuda.py`` and ``chip_smoke.py`` hold it against the
+plain version at these same shapes.  Here the plain version, which the
+wrapper runs for CPU tensors, is held against the reference's Pallas
+kernel in interpret mode, so those shapes have a JAX oracle.
+
+Tolerance, per element, as ``chip_smoke.py`` holds the kernel on the
+card: ``1e-5 + 1e-2·|want| + 2^-7·(the attention over |v|)``.  The plain
+version keeps p in f32 where the Pallas kernel rounds it to bf16 before
+the PV product (2^-8 relative each, so at most 2^-8 of the attention
+over |v|, taken twice), and both round the output to bf16 (2^-8
+relative each, 1e-2 with room).
+"""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import as_np, np_rand, to_jax, to_torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+
+#: (q shape, k/v shape, causal): the bf16 cases of chip_smoke.py's phase
+#: 2 — D = 64 and 128 (the wgmma form) ragged under both masks, Sq below
+#: and above Skv, and D = 96 (the SIMT form)
+CARD_CASES = [((2, 130, 4, 64), (2, 130, 4, 64), True),
+              ((2, 130, 4, 64), (2, 130, 4, 64), False),
+              ((1, 257, 2, 128), (1, 257, 2, 128), True),
+              ((1, 257, 2, 128), (1, 257, 2, 128), False),
+              ((2, 64, 4, 64), (2, 130, 4, 64), True),
+              ((1, 300, 2, 128), (1, 200, 2, 128), True),
+              ((1, 130, 2, 128), (1, 257, 2, 128), False),
+              ((1, 100, 2, 96), (1, 100, 2, 96), True)]
+P_ROUNDING = 2.0 ** -7
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,causal", CARD_CASES)
+def test_plain_version_matches_pallas_at_the_card_shapes(q_shape, kv_shape,
+                                                         causal):
+    q = np_rand(40, q_shape, "float32")
+    k, v = np_rand(41, kv_shape, "float32"), np_rand(42, kv_shape, "float32")
+    want = jops.flash_attention(*(to_jax(a, "bfloat16") for a in (q, k, v)),
+                                causal=causal, interpret=True)
+    tq, tk, tv = (to_torch(a, "bfloat16") for a in (q, k, v))
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == q_shape and got.dtype == torch.bfloat16
+    over_abs_v = ref.flash_attention(tq.float(), tk.float(), tv.float().abs(),
+                                     causal)
+    w = as_np(want)
+    limit = 1e-5 + 1e-2 * np.abs(w) + P_ROUNDING * as_np(over_abs_v)
+    assert (np.abs(as_np(got) - w) <= limit).all()
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 96, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 256, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")])
+def test_form_follows_dtype_and_head_width(dtype, d, want):
+    assert tfa.form(torch.zeros(1, 8, 2, d, dtype=dtype)) == want
+    # the (S, D) layout, and a base off the 16-byte grid: the kernel picks
+    # its load widths itself, so neither changes the form
+    assert tfa.form(torch.zeros(8, d, dtype=dtype)) == want
+    assert tfa.form(torch.zeros(8 * d + 1, dtype=dtype)[1:].view(8, d)) == want
+
+
+def test_cpu_calls_count_no_launch_of_either_form():
+    tops.reset_launches()
+    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 128),
+                     (torch.float32, 64), (torch.bfloat16, 96)):
+        x = torch.randn(1, 16, 2, d).to(dtype)
+        tops.flash_attention(x, x, x)
+    assert tops.flash_attention.launches == 0
+    assert tops.flash_attention.forms == {"wgmma": 0, "simt": 0}
+    tops.flash_attention.forms["wgmma"] = 2
+    tops.reset_launches()
+    assert tops.flash_attention.forms == {"wgmma": 0, "simt": 0}
+
+
+def test_query_tiles_match_the_source():
+    # the wrapper counts the launch grid with each form's query tile
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    simt, tc = src.split("namespace tc {")
+    assert re.findall(r"constexpr int BQ = (\d+);", simt) == [
+        str(tfa.BQ["simt"])]
+    assert re.findall(r"constexpr int BQ = (\d+);", tc) == [
+        str(tfa.BQ["wgmma"])]
+    assert set(tfa.BQ) == set(tfa.FORMS)
+    assert re.search(r"D == 64 \|\| D == 128", tc) and tfa.WGMMA_D == (64, 128)
