@@ -14,9 +14,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    PyTorch version on the card, at ragged shapes and at full-width shapes
    of models the repo supports (qwen3-4b, tinyllama-1.1b,
    deepseek-v2-lite-16b), with kernel, plain and one-library-call times
-   and its bound; each flash attention and MoE dispatch case logs the
-   form it took (wgmma for bf16 at head width 64 or 128 and for bf16 x,
-   simt otherwise);
+   (CUDA events over back-to-back calls), the kernel's device time and
+   device kernels a call (one ``torch.profiler`` run over the same
+   iterations: a time well under ``ms`` is the host's) and its bound;
+   each matmul, row moments, flash attention and MoE dispatch case logs
+   the form it took (matmul: narrow up to 32 columns, wide above; row
+   moments: one launch or split; wgmma for bf16 flash attention at head
+   width 64 or 128 and for bf16-x MoE dispatch, simt otherwise), and each
+   row moments case is held bit-equal across two calls;
 3. main path: ``generate_proxy`` on K-means at ``SCALE`` (1.0: 400,000
    x 64 f32 points, 32 centroids) with ``substrate="hopper"``, with every
    kernel's launch counter zeroed just before and read just after; a
@@ -26,7 +31,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the kernels against its stock-PyTorch form on the same inputs;
 5. main-path shapes: each of the path's kernels once more on the inputs
    the tuned proxy gives it, against its plain version, timed, with its
-   bound;
+   bound; a row moments call in its one-launch form that runs more than
+   one device kernel fails the run;
 6. traces: one ``torch.profiler`` run each of the K-means step and the
    tuned proxy — wall time, device busy share, top device kernels;
 7. bench: the kernel entry point's path, with every launch counter
@@ -40,9 +46,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 The last lines are the kernel table as JSON (all six kernels: the first
 three with their launches over phase 3 and their phase-5 times, the other
 three with their launches over phase 7 and their full-width phase-2
-times), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.  There is no CPU path: the script exits non-zero without a CUDA
-device, and outside a checkout.
+times, each with its device ms), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  There is no CPU path: the script
+exits non-zero without a CUDA device, and outside a checkout.
 """
 from __future__ import annotations
 
@@ -62,7 +68,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # tolerances against the plain versions on the card:
 #  matmul f32 — the same f32 products summed in another order;
 #  matmul bf16 — one bf16 rounding of an f32 result may flip by an ulp;
-#  row_moments — f32 sums reassociated across threads and splits;
+#  row_moments — f32 sums reassociated across threads and splits (bf16
+#  inputs are summed in f32 by both versions, so the same);
 #  sort — exact (a sort's output is unique);
 #  rmsnorm f32 — rsqrtf's 2 ulp and a reassociated sum of squares;
 #  rmsnorm bf16 — the final bf16 rounding may flip by an ulp;
@@ -82,6 +89,7 @@ TOL = {
     ("matmul", "float32"): dict(rtol=1e-4, atol=1e-4),
     ("matmul", "bfloat16"): dict(rtol=1e-2, atol=1e-2),
     ("row_moments", "float32"): dict(rtol=1e-4, atol=1e-5),
+    ("row_moments", "bfloat16"): dict(rtol=1e-4, atol=1e-5),
     ("rmsnorm", "float32"): dict(rtol=1e-5, atol=1e-5),
     ("rmsnorm", "bfloat16"): dict(rtol=1e-2, atol=1e-2),
     ("flash_attention", "float32"): dict(rtol=2e-3, atol=2e-4),
@@ -137,6 +145,27 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20) -> tuple:
+    """(ms, kernels) a call: the device kernels' summed time and their
+    count over one ``torch.profiler`` run of ``iters`` back-to-back calls,
+    divided by ``iters``; (None, None) where the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None, None
+    return (sum(_device_ms(e) for e in kernels) / iters,
+            sum(e.count for e in kernels) / iters)
 
 
 # ---------------------------------------------------------------------------
@@ -304,34 +333,44 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
            "dtype": str(typed.dtype).replace("torch.", "")}
     if kind == "matmul":
         x, y = args
-        got = matmul.matmul(x, y)
+        row["form"] = matmul.form(x, y)
+        call = lambda: matmul.matmul(x, y)  # noqa: E731
+        got = launch_form(row, matmul.matmul, call)
         want = ref.matmul(x, y)
         tol = TOL[(kind, row["dtype"])]
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), **tol)
-        row["ms"] = time_ms(torch, lambda: matmul.matmul(x, y), iters)
+        row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(torch, lambda: ref.matmul(x, y), iters)
         row["library_ms"] = time_ms(torch, lambda: torch.matmul(x, y), iters)
     elif kind == "row_moments":
         (x,) = args
-        gm, gq = rmsnorm.row_moments(x)
+        row["form"] = rmsnorm.form(x)
+        call = lambda: rmsnorm.row_moments(x)  # noqa: E731
+        gm, gq = launch_form(row, rmsnorm.row_moments, call)
         wm, wq = ref.row_moments(x)
         tol = TOL[(kind, row["dtype"])]
         err = max((gm - wm).abs().max().item(), (gq - wq).abs().max().item())
         torch.testing.assert_close(gm, wm, **tol)
         torch.testing.assert_close(gq, wq, **tol)
-        row["ms"] = time_ms(torch, lambda: rmsnorm.row_moments(x), iters)
+        # the same input gives the same bits, call after call
+        again = call()
+        if not (torch.equal(again[0], gm) and torch.equal(again[1], gq)):
+            raise fail(f"row_moments {row['shape']} {row['dtype']}: two calls "
+                       f"on the same input differ ({row['form']} form)")
+        row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(torch, lambda: ref.row_moments(x), iters)
         row["library_ms"] = time_ms(
             torch, lambda: torch.var_mean(x, dim=-1, correction=0), iters)
     elif kind == "rmsnorm":
         x, w = args
-        got = rmsnorm.rmsnorm(x, w)
+        call = lambda: rmsnorm.rmsnorm(x, w)  # noqa: E731
+        got = call()
         want = ref.rmsnorm(x, w)
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(),
                                    **TOL[(kind, row["dtype"])])
-        row["ms"] = time_ms(torch, lambda: rmsnorm.rmsnorm(x, w), iters)
+        row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(torch, lambda: ref.rmsnorm(x, w), iters)
         row["library_ms"] = time_ms(
             torch, lambda: F.rms_norm(x, (x.shape[-1],), w, eps=1e-6), iters)
@@ -339,7 +378,8 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         q, k, v, causal = args
         fa = flash_attention.flash_attention
         row["form"] = flash_attention.form(q)
-        got = launch_form(row, fa, lambda: fa(q, k, v, causal=causal))
+        call = lambda: fa(q, k, v, causal=causal)  # noqa: E731
+        got = launch_form(row, fa, call)
         want = ref.flash_attention(q, k, v, causal)
         if not torch.isfinite(got).all():
             raise fail(f"flash_attention {row['shape']}: non-finite output")
@@ -357,7 +397,7 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
                        f"error {row['err_over_tol']:.3g}x its tolerance "
                        f"(max abs err {err}, worst at (b,s,h) row {worst})")
         del want, diff, limit
-        row["ms"] = time_ms(torch, lambda: fa(q, k, v, causal=causal), iters)
+        row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(
             torch, lambda: ref.flash_attention(q, k, v, causal), iters)
         # SDPA's is_causal keeps k <= q from the top left, as the reference
@@ -369,8 +409,8 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         mask, x = args
         row["form"] = moe_dispatch.form(x)
         row["mask_dtype"] = str(mask.dtype).replace("torch.", "")
-        got = launch_form(row, moe_dispatch.moe_dispatch,
-                          lambda: moe_dispatch.moe_dispatch(mask, x))
+        call = lambda: moe_dispatch.moe_dispatch(mask, x)  # noqa: E731
+        got = launch_form(row, moe_dispatch.moe_dispatch, call)
         # the op casts the mask to x's type first, as the reference does
         want = ref.moe_dispatch(mask.to(x.dtype), x)
         one_hot = bool(((mask == 0) | (mask == 1)).all()) and bool(
@@ -384,8 +424,7 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         torch.testing.assert_close(got.float(), want.float(),
                                    **TOL[(kind, row["dtype"])])
         del want
-        row["ms"] = time_ms(torch, lambda: moe_dispatch.moe_dispatch(mask, x),
-                            iters)
+        row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(torch, lambda: ref.moe_dispatch(mask, x),
                                   iters)
         mask_x = mask.to(x.dtype)
@@ -394,7 +433,9 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
     else:
         x, block = args
         sentinel = bitonic_sort.sort_sentinel(x.dtype).item()
-        got = bitonic_sort.bitonic_sort_blocks(x, block=block)
+        call = lambda: bitonic_sort.bitonic_sort_blocks(  # noqa: E731
+            x, block=block)
+        got = call()
         want = ref.sort_blocks(x, block, sentinel)
         if not torch.equal(got, want):
             bad = (bits(got) != bits(want)).nonzero()
@@ -402,9 +443,7 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
                        f"block={block}: {bad.numel()} keys differ, first at "
                        f"{bad[:4].flatten().tolist()}")
         err = 0.0
-        row["ms"] = time_ms(
-            torch, lambda: bitonic_sort.bitonic_sort_blocks(x, block=block),
-            iters)
+        row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(
             torch, lambda: ref.sort_blocks(x, block, sentinel), iters)
         # torch has no CUDA sort for uint32: no library call to time
@@ -413,6 +452,7 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         row["library_ms"] = None if x.dtype == torch.uint32 else time_ms(
             torch, lambda: torch.sort(padded.view(-1, block), dim=-1), iters)
     row["max_abs_err"] = err
+    row["device_ms"], row["device_kernels"] = device_ms(torch, call, iters)
     row["bound_ms"], row["bound_by"], row["bytes_ms"] = bound(kind, args)
     return row
 
@@ -428,7 +468,8 @@ def fmt_row(r: dict) -> str:
         form = f" [{r['form']}]" if "form" in r else ""
     return (f"  {r['kernel']:15s} {r['dtype']:9s} {str(r['shape']):42s} "
             f"err={r['max_abs_err']:.3g}{used} ms={f(r['ms'])} "
-            f"plain={f(r['plain_ms'])} lib={f(r['library_ms'])} "
+            f"device={f(r['device_ms'])} (kernels/call "
+            f"{r['device_kernels']}) plain={f(r['plain_ms'])} lib={f(r['library_ms'])} "
             f"bound={f(r['bound_ms'])} ({r['bound_by']}; bytes "
             f"{f(r['bytes_ms'])}){form}")
 
@@ -541,20 +582,73 @@ def entry_point_cases(torch, dev, full: bool):
 
 
 def phase_kernels(torch, dev) -> list:
+    from repro_torch.kernels import matmul, rmsnorm
+
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    rows = []
+    def off_grid(*shape, dtype=torch.float32):  # base 4 or 2 bytes past
+        n = 1
+        for s in shape:
+            n *= s
+        return randn(n + 1, dtype=dtype)[1:].view(*shape)
+
+    rows, failures = [], []
+
+    def add(kind, args, iters=20, headline=None):
+        """Check one case; a failing case is logged and the phase goes on,
+        so one run shows every case that fails."""
+        try:
+            r = check_kernel(torch, kind, args, iters)
+        except (AssertionError, SystemExit) as e:
+            shape = [list(a.shape) if hasattr(a, "shape") else a
+                     for a in args]
+            what = " ".join(str(e).split())[:300]
+            failures.append(f"{kind} {shape}: {what}")
+            log(f"  FAILED {kind} {shape}: {what}")
+            return
+        if headline is not None:
+            r["headline"] = headline
+        log(fmt_row(r))
+        rows.append(r)
+
+    narrow, small = matmul.NARROW_N, matmul.NARROW_SMALL_M_N
     for dtype in (torch.float32, torch.bfloat16):
+        # ragged small shapes; the main path's wide shapes; narrow N at
+        # (65536, 2048) (N = 2 in f32 at K = 512: at K = 2048 torch.matmul
+        # splits K there and is itself 1.3e-4 off the float64 product at
+        # one output, past this TOL, so no kernel can be held to it, as
+        # repro_torch.bench.thresholds shows); N either side of the
+        # narrow bound from NARROW_FULL_M rows and below it; K off the
+        # 16-byte unit (the wide form's scalar loads; a narrow N goes to
+        # the wide form there)
         for m, k, n in ((300, 200, 150), (4096, 64, 32), (129, 65, 257),
-                        (65536, 2048, 8)):
-            rows.append(check_kernel(torch, "matmul",
-                                     (randn(m, k, dtype=dtype),
-                                      randn(k, n, dtype=dtype))))
-    rows.append(check_kernel(torch, "row_moments", (randn(64, 1 << 22),)))
-    rows.append(check_kernel(torch, "row_moments", (randn(33, 70_001),)))
+                        (12288, 2048, 128), (32768, 2048, 128),
+                        (65536, 2048 if dtype == torch.bfloat16 else 512, 2),
+                        (65536, 2048, 8),
+                        (65536, 2048, narrow), (65536, 2048, narrow + 1),
+                        (4096, 512, small), (4096, 512, small + 1),
+                        (300, 203, 150),
+                        (4099, 67, 8)):
+            add("matmul", (randn(m, k, dtype=dtype),
+                           randn(k, n, dtype=dtype)))
+        # base pointers off the 16-byte grid: the wide form's scalar loads,
+        # at a wide and a narrow N
+        for m, k, n in ((300, 256, 160), (4096, 256, 8)):
+            add("matmul", (off_grid(m, k, dtype=dtype),
+                           off_grid(k, n, dtype=dtype)))
+    # the main path's shape; either side of the one-launch bounds (the
+    # input's bytes, then the row's, in f32); an off-grid base; split
+    # shapes (two calls held bit-equal in each row)
+    d_one = rmsnorm.ONE_LAUNCH_BYTES // (4 * 4)
+    d_row = rmsnorm.ONE_LAUNCH_ROW_BYTES // 4
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((1024, 57), (4, d_one), (4, d_one + 1), (16, d_row),
+                      (16, d_row + 1), (64, 1 << 22), (33, 70_001)):
+            add("row_moments", (randn(*shape, dtype=dtype),))
+        add("row_moments", (off_grid(33, 4096, dtype=dtype),))
     for dtype in (torch.uint32, torch.int32, torch.float32, torch.bfloat16):
         for n, block in ((1 << 16, 4096), (100_003, 4096), (1 << 18, 1 << 16),
                          (70_001, 1 << 15)):
@@ -564,16 +658,14 @@ def phase_kernels(torch, dev) -> list:
                 x = x.view(torch.uint32) if dtype == torch.uint32 else x
             else:
                 x = randn(n, dtype=dtype)
-            rows.append(check_kernel(torch, "bitonic_sort", (x, block)))
-    for r in rows:
-        log(fmt_row(r))
+            add("bitonic_sort", (x, block))
     for full in (False, True):
         for kind, args, iters, headline in entry_point_cases(torch, dev,
                                                              full):
-            r = check_kernel(torch, kind, args, iters)
-            r["headline"] = headline
-            log(fmt_row(r))
-            rows.append(r)
+            add(kind, args, iters, headline)
+    if failures:
+        raise fail(f"{len(failures)} kernel case(s) failed: "
+                   + "; ".join(failures))
     return rows
 
 
@@ -724,6 +816,9 @@ def phase_main_shapes(torch, dev, pb, counts) -> list:
             args = (args[0],)
         r = check_kernel(torch, name, tuple(args), iters=50)
         log("main-path shape:" + fmt_row(r)[1:])
+        if r.get("form") == "one_launch" and r["device_kernels"] != 1:
+            raise fail(f"row_moments at {r['shape']} (one-launch form) ran "
+                       f"{r['device_kernels']} device kernels a call")
         entries.append(kernel_entry(name, counts[name], r))
     return entries
 
@@ -736,7 +831,7 @@ def kernel_entry(name: str, launches: int, r: dict) -> dict:
     return {"name": name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "dtype": r["dtype"]}
 
@@ -781,7 +876,7 @@ def phase_bench(torch, dev, kernel_rows) -> list:
     if missing:
         raise fail(f"kernels never launched in the bench phase: {missing}")
     for name, by_form in forms.items():
-        if by_form["wgmma"] == 0:
+        if by_form.get("wgmma") == 0:
             raise fail(f"{name}'s tensor-core form never launched")
     entries = []
     for name in ops.KERNELS:

@@ -7,6 +7,10 @@ plain C interface, loaded with ``ctypes``.  The library lands in
 an unchanged checkout builds once and a changed source rebuilds.  Nothing
 is built at import: :func:`library` builds at first use, on a host with
 ``nvcc``.
+
+:func:`define_op` registers each kernel as an op of the ``repro_torch``
+namespace with ``torch.library.Library``: one Python function, the
+wrapper, is the op's kernel for the CPU and the CUDA dispatch keys.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
@@ -43,7 +47,7 @@ _F = ctypes.c_float
 
 #: C entry points: name -> argtypes (every one returns a CUDA status)
 SIGNATURES = {
-    "repro_matmul": [_I, _P, _P, _P, _L, _L, _L, _P],
+    "repro_matmul": [_I, _I, _P, _P, _P, _L, _L, _L, _P],
     "repro_row_moments": [_I, _P, _P, _P, _P, _L, _L, _I, _P],
     "repro_bitonic_tile": [_I, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "repro_bitonic_global": [_I, _P, _L, _I, _I, _I, _P],
@@ -52,6 +56,9 @@ SIGNATURES = {
                               _I, _P],
     "repro_moe_dispatch": [_I, _I, _P, _P, _P, _L, _L, _L, _L, _P],
 }
+
+#: the ``repro_torch`` op namespace, owned by this module
+_LIB = torch.library.Library("repro_torch", "DEF")
 
 #: what the last build did (seconds, whether it compiled, ptxas report)
 BUILD_INFO: Dict[str, object] = {}
@@ -134,19 +141,42 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    return getattr(library(), name)
+
+
 def call(name: str, *args) -> None:
     """Call one C entry point and raise if it reports a CUDA error."""
-    lib = library()
-    status = getattr(lib, name)(*args)
+    status = _entry(name)(*args)
     if status != 0:
         what = ("unsupported dtype code or size" if status < 0
-                else lib.repro_error_string(status).decode())
+                else library().repro_error_string(status).decode())
         raise RuntimeError(f"{name}: launch failed ({status}): {what}")
 
 
+def define_op(schema: str, impl: Callable) -> None:
+    """Define ``repro_torch::<schema>`` with ``impl`` as its kernel on the
+    CPU and CUDA dispatch keys (``torch.ops.repro_torch.<name>``).
+
+    A ``Library`` op costs the dispatcher a few microseconds a call, a
+    ``torch.library.custom_op`` several times that (timed by
+    ``repro_torch.bench.thresholds``).  ``impl`` checks its inputs, takes
+    the plain version for CPU tensors and launches its kernel for CUDA
+    ones."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    for key in ("CPU", "CUDA"):
+        _LIB.impl(name, impl, key)
+
+
 def stream_ptr(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as a C pointer value."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as a C pointer value:
+    the raw handle, without the ``torch.cuda.Stream`` object
+    ``torch.cuda.current_stream`` would build."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def dtype_code(t: torch.Tensor, allowed) -> int:

@@ -68,14 +68,11 @@ def _check(x: torch.Tensor, block: int) -> None:
         raise ValueError(f"block must be a power of two >= 2, got {block}")
 
 
-@torch.library.custom_op("repro_torch::bitonic_sort_blocks", mutates_args=())
 def _bitonic_sort_blocks_op(x: torch.Tensor, block: int) -> torch.Tensor:
     _check(x, block)
     sentinel = sort_sentinel(x.dtype).item()
     if x.device.type == "cpu":
         return ref.sort_blocks(x, block, sentinel)
-    if x.device.type != "cuda":
-        raise ValueError(f"bitonic_sort_blocks: unsupported device {x.device}")
     n = x.shape[0]
     n_pad = n + (-n) % block
     out = torch.empty(n_pad, dtype=x.dtype, device=x.device)
@@ -97,6 +94,11 @@ def _bitonic_sort_blocks_op(x: torch.Tensor, block: int) -> torch.Tensor:
                         log2_block, a, b, stream)
     bitonic_sort_blocks.launches += 1
     return out
+
+
+_build.define_op(
+    "bitonic_sort_blocks(Tensor x, SymInt block) -> Tensor",
+    _bitonic_sort_blocks_op)
 
 
 def bitonic_sort_blocks(x: torch.Tensor, *, block: int = 1024) -> torch.Tensor:

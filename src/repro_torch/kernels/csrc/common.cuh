@@ -35,4 +35,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
+// The 16 / sizeof(T) values of one 16-byte unit of f32 (4) or bf16 (8),
+// as f32, in address order.
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[2 * j] = __uint_as_float(w[j] << 16);              // lower address
+    f[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);  // upper address
+  }
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

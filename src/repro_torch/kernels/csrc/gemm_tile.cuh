@@ -1,4 +1,5 @@
-// The tiled SIMT product loop shared by matmul.cu and moe_dispatch.cu.
+// The tiled SIMT product loop of moe_dispatch.cu's f32 form (matmul.cu
+// has its own forms).
 //
 // One 256-thread block computes one 64x64 tile of c(M, N) = a(M, K) @
 // b(K, N): a K loop over 16-wide slabs staged in shared memory as f32

@@ -87,14 +87,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention wants contiguous operands")
 
 
-@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool) -> torch.Tensor:
     _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -110,6 +107,11 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attention.launches += 1
     flash_attention.forms[kind] += 1
     return out
+
+
+_build.define_op(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+    _flash_attention_op)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

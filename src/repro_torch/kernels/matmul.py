@@ -1,10 +1,13 @@
-"""Tiled matrix product — the Matrix motif's hot loop on the GPU.
+"""Matrix product — the Matrix motif's hot loop on the GPU.
 
 Wraps ``csrc/matmul.cu`` (which replaces the Pallas kernel in
-``repro/kernels/matmul.py``) as the custom op ``repro_torch::matmul``, so
-a signature profile sees one dot-class op with 2·M·N·K flops.  A tensor
-on the CPU runs the plain version (``ref.matmul``); a CUDA tensor
-launches the kernel or raises.
+``repro/kernels/matmul.py``) as the op ``repro_torch::matmul``, so a
+signature profile sees one dot-class op with 2·M·N·K flops.  A tensor on
+the CPU runs the plain version (``ref.matmul``); a CUDA tensor launches
+the kernel or raises.  :func:`form` names the kernel's form (the narrow
+one-pass form at small N, the wide FMA tile loop above; the kernel picks
+its own tile and load widths) and ``matmul.forms`` counts launches per
+form.
 """
 from __future__ import annotations
 
@@ -13,6 +16,25 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+#: widest N the narrow form takes, from ``NARROW_FULL_M`` rows on (a
+#: block of 256 rows for each of an H100's 132 SMs); below that it takes
+#: N up to ``NARROW_SMALL_M_N``.  Mirrored in ``csrc/matmul.cu``.
+NARROW_N = 32
+NARROW_FULL_M = 256 * 132
+NARROW_SMALL_M_N = 16
+FORMS = ("narrow", "wide")
+#: the C launch's form codes: 0 picks from M and N as :func:`form` does
+FORM_CODES = {"auto": 0, "wide": 1, "narrow": 2}
+
+
+def form(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The kernel form a CUDA call on x (M, K) @ y (K, N) runs: "narrow"
+    (one pass over x, whose rows must lie on the 16-byte grid) or "wide"
+    (the FMA tile loop)."""
+    (m, k), n = x.shape, y.shape[1]
+    rows = x.data_ptr() % 16 == 0 and (k * x.element_size()) % 16 == 0
+    narrow = n <= NARROW_SMALL_M_N or (n <= NARROW_N and m >= NARROW_FULL_M)
+    return "narrow" if rows and narrow else "wide"
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -28,23 +50,33 @@ def _check(x: torch.Tensor, y: torch.Tensor) -> None:
         raise ValueError("matmul wants contiguous operands")
 
 
-@torch.library.custom_op("repro_torch::matmul", mutates_args=())
+def launch_matmul(x: torch.Tensor, y: torch.Tensor,
+                  kind: str = "auto") -> torch.Tensor:
+    """The kernel on CUDA tensors x, y in form ``kind`` ("auto" picks as
+    :func:`form` says; "narrow" takes N <= ``NARROW_N`` and x's rows on
+    the 16-byte grid only)."""
+    M, K = x.shape
+    N = y.shape[1]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if out.numel():
+        _build.call("repro_matmul", _build.dtype_code(x, DTYPES),
+                    FORM_CODES[kind], x.data_ptr(), y.data_ptr(),
+                    out.data_ptr(), M, N, K, _build.stream_ptr(x.device))
+    return out
+
+
 def _matmul_op(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     _check(x, y)
     if x.device.type == "cpu":
         return ref.matmul(x, y)
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul: unsupported device {x.device}")
-    M, K = x.shape
-    N = y.shape[1]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    _build.call("repro_matmul", _build.dtype_code(x, DTYPES), x.data_ptr(),
-                y.data_ptr(), out.data_ptr(), M, N, K,
-                _build.stream_ptr(x.device))
-    matmul.launches += 1
+    out = launch_matmul(x, y)
+    if out.numel():
+        matmul.launches += 1
+        matmul.forms[form(x, y)] += 1
     return out
+
+
+_build.define_op("matmul(Tensor x, Tensor y) -> Tensor", _matmul_op)
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -53,3 +85,4 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 matmul.launches = 0
+matmul.forms = dict.fromkeys(FORMS, 0)

@@ -41,13 +41,10 @@ def _check(mask: torch.Tensor, x: torch.Tensor) -> None:
         raise ValueError("moe_dispatch wants contiguous operands")
 
 
-@torch.library.custom_op("repro_torch::moe_dispatch", mutates_args=())
 def _moe_dispatch_op(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check(mask, x)
     if x.device.type == "cpu":
         return ref.moe_dispatch(mask.to(x.dtype), x)
-    if x.device.type != "cuda":
-        raise ValueError(f"moe_dispatch: unsupported device {x.device}")
     t, e, c = mask.shape
     d = x.shape[1]
     out = torch.empty((e, c, d), dtype=x.dtype, device=x.device)
@@ -61,6 +58,11 @@ def _moe_dispatch_op(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     moe_dispatch.launches += 1
     moe_dispatch.forms[form(x)] += 1
     return out
+
+
+_build.define_op(
+    "moe_dispatch(Tensor mask, Tensor x) -> Tensor",
+    _moe_dispatch_op)
 
 
 def moe_dispatch(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ Wraps ``csrc/row_moments.cu`` (which replaces ``row_moments`` ->
 ``rmsnorm`` -> ``_rmsnorm_kernel`` in the same file) as
 ``repro_torch::rmsnorm``, so a signature profile sees one reduce-class op
 for each.  A tensor on the CPU runs the plain version (``ref``); a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises.  Row moments has two forms, named
+by :func:`form` and counted per form in ``row_moments.forms``: one launch
+(small inputs, or rows enough to fill the card) and split rows (two
+launches, for a few long rows).
 """
 from __future__ import annotations
 
@@ -18,19 +21,48 @@ from repro_torch.kernels import _build, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 
-#: pass-1 blocks the split-row design aims for (8 per SM of an H100)
-TARGET_BLOCKS = 132 * 8
+#: pass-1 blocks the split form aims for: 4 blocks of 256 threads on
+#: each SM of an H100, one wave with no tail of a second
+TARGET_BLOCKS = 132 * 4
 #: fewest elements a pass-1 block reduces
 MIN_SEGMENT = 4096
 MAX_SPLITS = 65535
+#: one launch for inputs up to ONE_LAUNCH_BYTES and for rows up to
+#: ONE_LAUNCH_ROW_BYTES: a block reads its row at ~85 GB/s, so such a row
+#: costs the one-launch form about what a second launch and the scratch
+#: buffer cost the host (~8 µs); measured by ``repro_torch.bench.
+#: thresholds``, where below both bounds one launch was within 4 µs of
+#: the split form's device time at every row count from 8 to 128
+ONE_LAUNCH_BYTES = 4 << 20
+ONE_LAUNCH_ROW_BYTES = 512 << 10
 
 
-def splits_for(rows: int, d: int) -> int:
-    """How many segments each row is cut into: enough blocks to fill the
-    card, never segments shorter than ``MIN_SEGMENT``."""
-    want = -(-TARGET_BLOCKS // max(rows, 1))
-    most = max(-(-d // MIN_SEGMENT), 1)
+def fill_splits(rows: int, d: int) -> int:
+    """The split form's segments a row: enough pass-1 blocks to fill the
+    card in one wave, no segment shorter than ``MIN_SEGMENT``."""
+    want = TARGET_BLOCKS // max(rows, 1)
+    most = max(d // MIN_SEGMENT, 1)
     return int(max(min(want, most, MAX_SPLITS), 1))
+
+
+def splits_for(rows: int, d: int, itemsize: int = 4) -> int:
+    """How many segments each row is cut into: 1 (one launch) for inputs
+    up to ``ONE_LAUNCH_BYTES``, rows up to ``ONE_LAUNCH_ROW_BYTES`` and
+    rows enough to fill the card, else :func:`fill_splits`."""
+    if (rows * d * itemsize <= ONE_LAUNCH_BYTES
+            or d * itemsize <= ONE_LAUNCH_ROW_BYTES):
+        return 1
+    return fill_splits(rows, d)
+
+
+FORMS = ("one_launch", "split")
+
+
+def form(x: torch.Tensor) -> str:
+    """The row-moments form a CUDA call on x runs."""
+    d = max(x.shape[-1], 1)
+    return ("one_launch" if splits_for(x.numel() // d, d, x.element_size())
+            == 1 else "split")
 
 
 def _check(x: torch.Tensor) -> None:
@@ -43,28 +75,40 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError("row_moments wants a contiguous input")
 
 
-@torch.library.custom_op("repro_torch::row_moments", mutates_args=())
-def _row_moments_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check(x)
-    if x.device.type == "cpu":
-        return ref.row_moments(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"row_moments: unsupported device {x.device}")
+def launch_row_moments(x: torch.Tensor, splits: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensor x with ``splits`` segments a row (1: the
+    one-launch form); :func:`splits_for` gives the op's choice."""
     d = x.shape[-1]
     rows = x.numel() // d
     mean = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     msq = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     if rows == 0:
         return mean, msq
-    splits = splits_for(rows, d)
-    partial = torch.empty((rows, splits, 2), dtype=torch.float32,
-                          device=x.device)
+    # the split form's per-segment sums; the one-launch form needs none
+    partial = None if splits == 1 else torch.empty(
+        (rows, splits, 2), dtype=torch.float32, device=x.device)
     _build.call("repro_row_moments", _build.dtype_code(x, DTYPES),
-                x.data_ptr(), partial.data_ptr(), mean.data_ptr(),
-                msq.data_ptr(), rows, d, splits,
+                x.data_ptr(), None if partial is None else partial.data_ptr(),
+                mean.data_ptr(), msq.data_ptr(), rows, d, splits,
                 _build.stream_ptr(x.device))
-    row_moments.launches += 1
     return mean, msq
+
+
+def _row_moments_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check(x)
+    if x.device.type == "cpu":
+        return ref.row_moments(x)
+    d = x.shape[-1]
+    splits = splits_for(x.numel() // d, d, x.element_size())
+    out = launch_row_moments(x, splits)
+    if x.numel():
+        row_moments.launches += 1
+        row_moments.forms[FORMS[splits > 1]] += 1
+    return out
+
+
+_build.define_op("row_moments(Tensor x) -> (Tensor, Tensor)", _row_moments_op)
 
 
 def row_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,6 +118,7 @@ def row_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 row_moments.launches = 0
+row_moments.forms = dict.fromkeys(FORMS, 0)
 
 
 def _check_rmsnorm(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -92,14 +137,11 @@ def _check_rmsnorm(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("rmsnorm wants contiguous operands")
 
 
-@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
 def _rmsnorm_op(x: torch.Tensor, w: torch.Tensor,
                 eps: float) -> torch.Tensor:
     _check_rmsnorm(x, w)
     if x.device.type == "cpu":
         return ref.rmsnorm(x, w, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {x.device}")
     out = torch.empty_like(x)
     d = x.shape[-1]
     rows = x.numel() // d
@@ -110,6 +152,11 @@ def _rmsnorm_op(x: torch.Tensor, w: torch.Tensor,
                 out.data_ptr(), rows, d, eps, _build.stream_ptr(x.device))
     rmsnorm.launches += 1
     return out
+
+
+_build.define_op(
+    "rmsnorm(Tensor x, Tensor w, float eps) -> Tensor",
+    _rmsnorm_op)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,

@@ -25,8 +25,10 @@ from torch_parity import cuda_device, np_rand, to_torch  # noqa: F401
 
 from repro_torch.kernels import bitonic_sort as tbs
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trm
 
 MATMUL_SHAPES = [(128, 128, 128), (300, 200, 150), (64, 512, 32),
                  (129, 65, 257)]
@@ -43,6 +45,77 @@ def test_cuda_matmul_matches_plain(cuda_device, dtype):
         torch.testing.assert_close(tops.matmul(x, y).float(),
                                    tref.matmul(x, y).float(),
                                    **MATMUL_TOL[dtype])
+
+
+def _on_card(device, seed, shape, dtype, off_grid=False):
+    """Seeded data on the card; ``off_grid`` puts its base one element past
+    the 16-byte grid (the kernels' scalar loads)."""
+    n = math.prod(shape) + int(off_grid)
+    t = to_torch(np_rand(seed, (n,), "float32"), dtype).to(device)
+    return t[int(off_grid):].view(shape)
+
+
+# (M, K, N, base off the grid): the wide form's five tiles (chosen by the
+# launch from M and N on 132 SMs: 96x128, 128x128, 64x128, 128x64, 64x64),
+# K off the 16-byte unit, N either side of both narrow bounds (below and
+# from NARROW_FULL_M rows), narrow N from 2, and bases off the grid (the
+# wide form's scalar loads, also at a narrow N)
+MATMUL_FORM_CASES = [(12288, 64, 128, False), (32768, 64, 128, False),
+                     (8192, 64, 128, False), (16384, 64, 64, False),
+                     (300, 203, 150, False), (300, 256, 160, True),
+                     (4099, 67, 8, False), (4096, 256, 2, False),
+                     (1000, 512, tmm.NARROW_SMALL_M_N, False),
+                     (1000, 512, tmm.NARROW_SMALL_M_N + 1, False),
+                     (tmm.NARROW_FULL_M, 64, tmm.NARROW_N, False),
+                     (tmm.NARROW_FULL_M, 64, tmm.NARROW_N + 1, False),
+                     (4096, 256, 8, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_matmul_forms_match_plain(cuda_device, dtype):
+    tops.reset_launches()
+    calls = dict.fromkeys(tmm.FORMS, 0)
+    for m, k, n, off in MATMUL_FORM_CASES:
+        x = _on_card(cuda_device, 1, (m, k), dtype, off)
+        y = _on_card(cuda_device, 2, (k, n), dtype, off)
+        torch.testing.assert_close(tops.matmul(x, y).float(),
+                                   tref.matmul(x, y).float(),
+                                   **MATMUL_TOL[dtype])
+        calls[tmm.form(x, y)] += 1
+    assert tops.matmul.forms == calls
+    assert tops.launch_counts()["matmul"] == len(MATMUL_FORM_CASES)
+
+
+D_ONE = trm.ONE_LAUNCH_BYTES // 16
+D_ROW = trm.ONE_LAUNCH_ROW_BYTES // 4
+# (rows, D, base off the grid): the main path's shape, either side of the
+# one-launch bounds in f32 (the input's, then the row's), split shapes in
+# both types, a block-per-row shape off the grid, many short rows
+ROW_MOMENTS_CASES = [(1024, 57, False), (4, D_ONE, False),
+                     (4, D_ONE + 1, False), (16, D_ROW, False),
+                     (16, D_ROW + 1, False), (33, 70_001, False),
+                     (16, 1 << 19, False), (33, 4096, True),
+                     (600, 2048, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_row_moments_forms_match_plain_and_repeat(cuda_device, dtype):
+    tops.reset_launches()
+    calls = dict.fromkeys(trm.FORMS, 0)
+    for rows, d, off in ROW_MOMENTS_CASES:
+        x = _on_card(cuda_device, 3, (rows, d), dtype, off)
+        got = tops.row_moments(x)
+        for g, w in zip(got, tref.row_moments(x)):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        # the same input gives the same bits, call after call
+        for g, again in zip(got, tops.row_moments(x)):
+            assert torch.equal(g, again)
+        calls[trm.form(x)] += 2
+    assert tops.row_moments.forms == calls
+    assert calls["split"] and calls["one_launch"]
+    assert tops.launch_counts()["row_moments"] == 2 * len(ROW_MOMENTS_CASES)
 
 
 @pytest.mark.cuda

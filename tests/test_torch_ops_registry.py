@@ -1,0 +1,178 @@
+"""The port's six kernel ops as the dispatcher and a profile see them.
+
+Each kernel is one op of the ``repro_torch`` namespace, registered with
+``torch.library.Library`` (``kernels/_build.py::define_op``) on the CPU
+and CUDA keys.  On the CPU each op runs its plain version, so its result
+equals ``kernels/ref.py``'s exactly; it rejects what its kernel does not
+take; and a signature profile of one call counts one op of the class
+``core/signature.py::KERNEL_OPS`` gives it.  The forms the CUDA wrappers
+pick (``matmul.form``, ``rmsnorm.form``) are checked against the rules
+the kernels' sources state.
+"""
+import re
+
+import pytest
+import torch
+
+from torch_parity import np_rand, to_torch
+
+from repro_torch.core.signature import KERNEL_OPS, profile_call
+from repro_torch.kernels import _build
+from repro_torch.kernels import bitonic_sort as tbs
+from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trm
+
+
+def _t(seed, shape, dtype="float32"):
+    return to_torch(np_rand(seed, shape, "float32"), dtype)
+
+
+def _cases():
+    """(op name, args, plain version's result) on small CPU inputs."""
+    x, y = _t(1, (33, 20)), _t(2, (20, 7))
+    r = _t(3, (5, 70))
+    w = _t(4, (70,))
+    q, k, v = (_t(s, (1, 9, 2, 8)) for s in (5, 6, 7))
+    mask = tops.make_dispatch_mask(torch.arange(12) % 3, 3, 4)
+    xd = _t(8, (12, 6))
+    keys = to_torch(np_rand(9, (100,), "uint32"))
+    return {
+        "matmul": ((x, y), tref.matmul(x, y)),
+        "row_moments": ((r,), tref.row_moments(r)),
+        "rmsnorm": ((r, w, 1e-6), tref.rmsnorm(r, w, 1e-6)),
+        "bitonic_sort_blocks": (
+            (keys, 32),
+            tref.sort_blocks(keys, 32, tbs.sort_sentinel(keys.dtype).item())),
+        "flash_attention": ((q, k, v, True), tref.flash_attention(q, k, v)),
+        "moe_dispatch": ((mask, xd), tref.moe_dispatch(mask, xd)),
+    }
+
+
+OPS = sorted(KERNEL_OPS)
+
+
+def test_every_kernel_op_is_registered_once():
+    assert OPS == sorted(_cases())
+    assert OPS == sorted(k.wrapper.__name__ for k in tops.KERNELS.values())
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_op_is_reachable_through_torch_ops(name):
+    packet = getattr(torch.ops.repro_torch, name)
+    assert packet.default._schema.name == f"repro_torch::{name}"
+    # defined with the Library form on the CPU and CUDA keys
+    for key in ("CPU", "CUDA"):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(
+            f"repro_torch::{name}", key)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_op_on_the_cpu_equals_the_plain_version(name):
+    args, want = _cases()[name]
+    got = getattr(torch.ops.repro_torch, name)(*args)
+    if isinstance(want, tuple):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    else:
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_a_profile_counts_one_op_of_its_class(name):
+    args, _ = _cases()[name]
+    op = getattr(torch.ops.repro_torch, name)
+    sig = profile_call(lambda *a: op(*a), *args)
+    assert sig.raw_cost == {f"ops_{KERNEL_OPS[name]}": 1.0}
+
+
+def _rejections():
+    x = torch.randn(8, 4)
+    r = torch.randn(5, 8)
+    q = torch.randn(1, 4, 2, 8)
+    return [
+        ("matmul", (x, torch.randn(3, 4).T), ValueError, "contiguous"),
+        ("matmul", (x, torch.randn(4, 3, dtype=torch.float64)), TypeError, None),
+        ("matmul", (x, torch.randn(5, 3)), ValueError, "K"),
+        ("row_moments", (torch.randn(4, 8).T,), ValueError, "contiguous"),
+        ("row_moments", (torch.randn(4, 8, dtype=torch.float64),), TypeError,
+         None),
+        ("row_moments", (torch.randn(4, 0),), ValueError, "non-empty"),
+        ("rmsnorm", (r, torch.randn(7), 1e-6), ValueError, "w of shape"),
+        ("rmsnorm", (r.T, torch.randn(5), 1e-6), ValueError, "contiguous"),
+        ("bitonic_sort_blocks", (torch.arange(8, dtype=torch.int64), 4),
+         TypeError, None),
+        ("bitonic_sort_blocks", (torch.randn(8), 3), ValueError, "power"),
+        ("flash_attention", (q, q, q[..., :4].contiguous(), True), ValueError,
+         None),
+        ("flash_attention", (torch.randn(1, 4, 2, 300),) * 3 + (True,),
+         ValueError, "head widths"),
+        ("moe_dispatch", (torch.ones(6, 2), torch.randn(6, 4)), ValueError,
+         "mask"),
+        ("moe_dispatch", (torch.ones(6, 2, 3), torch.randn(4, 6).T),
+         ValueError, "contiguous"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_rejections())))
+def test_op_rejects_what_its_kernel_does_not_take(case):
+    name, args, exc, match = _rejections()[case]
+    with pytest.raises(exc, match=match):
+        getattr(torch.ops.repro_torch, name)(*args)
+
+
+def test_a_second_definition_of_an_op_is_refused():
+    with pytest.raises(RuntimeError):
+        _build.define_op("matmul(Tensor x, Tensor y) -> Tensor", tref.matmul)
+
+
+@pytest.mark.parametrize("m,k,n,form", [
+    (64, 8, 1, "narrow"), (64, 8, 16, "narrow"), (64, 8, 17, "wide"),
+    (12288, 8, 32, "wide"), (65536, 8, 2, "narrow"),
+    (65536, 8, 32, "narrow"), (65536, 8, 33, "wide"),
+    (12288, 8, 128, "wide"),
+    (64, 67, 8, "wide"),          # rows off the 16-byte grid
+])
+def test_matmul_form_follows_the_narrow_bounds(m, k, n, form):
+    assert tmm.form(torch.empty(m, k), torch.empty(k, n)) == form
+    off_grid = torch.empty(m * k + 1)[1:].view(m, k)
+    assert tmm.form(off_grid, torch.empty(k, n)) == "wide"
+
+
+def test_matmul_narrow_bounds_match_the_source():
+    src = (_build.CSRC / "matmul.cu").read_text()
+    for name, want in (("MAX_N", tmm.NARROW_N),
+                       ("SMALL_M_N", tmm.NARROW_SMALL_M_N)):
+        found = re.search(rf"constexpr long long {name} = (\d+);", src)
+        assert found and int(found.group(1)) == want
+    found = re.search(r"constexpr long long FULL_M = BM \* (\d+);", src)
+    assert found and 256 * int(found.group(1)) == tmm.NARROW_FULL_M
+
+
+D_ONE = trm.ONE_LAUNCH_BYTES // 16       # four f32 rows of this length
+D_ROW = trm.ONE_LAUNCH_ROW_BYTES // 4    # one f32 row of this length
+
+
+@pytest.mark.parametrize("rows,d,itemsize,form", [
+    (1024, 57, 4, "one_launch"),            # the main path's shape
+    (4, D_ONE, 4, "one_launch"),            # the input's bound
+    (4, D_ONE + 1, 4, "split"),
+    (16, D_ROW, 4, "one_launch"),           # the row's bound
+    (16, D_ROW + 1, 4, "split"),
+    (33, 70_001, 4, "one_launch"),
+    (33, 1 << 18, 2, "one_launch"),
+    (33, 1 << 19, 2, "split"),
+    (64, 1 << 22, 4, "split"),
+    (300, 1 << 20, 4, "one_launch"),        # rows enough to fill the card
+])
+def test_row_moments_form_and_splits(rows, d, itemsize, form):
+    splits = trm.splits_for(rows, d, itemsize)
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    assert trm.form(torch.empty(rows, d, dtype=dtype)) == form
+    assert (splits == 1) == (form == "one_launch")
+    if form == "split":
+        # one wave of pass-1 blocks, never a segment below MIN_SEGMENT
+        assert rows * splits <= trm.TARGET_BLOCKS
+        assert d // splits >= trm.MIN_SEGMENT
