@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. environment: the card's name and power limit, torch/CUDA versions,
    which torch ops take uint32 on the card, and the kernels' build
-   (``nvcc`` on ``src/repro_torch/kernels/csrc``) with its time;
+   (``nvcc`` on ``src/repro_torch/kernels/csrc``) with its time and
+   ptxas's registers and spills; a spill in ``bitonic_sort.cu`` or
+   ``rmsnorm.cu`` fails the run;
 2. kernels: each of the six hand-written kernels against its plain
    PyTorch version on the card, at ragged shapes and at full-width shapes
    of models the repo supports (qwen3-4b, tinyllama-1.1b,
@@ -17,11 +19,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (CUDA events over back-to-back calls), the kernel's device time and
    device kernels a call (one ``torch.profiler`` run over the same
    iterations: a time well under ``ms`` is the host's) and its bound;
-   each matmul, row moments, flash attention and MoE dispatch case logs
-   the form it took (matmul: narrow up to 32 columns, wide above; row
-   moments: one launch or split; wgmma for bf16 flash attention at head
-   width 64 or 128 and for bf16-x MoE dispatch, simt otherwise), and each
-   row moments case is held bit-equal across two calls;
+   each matmul, row moments, rmsnorm, flash attention and MoE dispatch
+   case logs the form it took (matmul: narrow up to 32 columns, wide
+   above; row moments: one launch or split; rmsnorm: warp on 16-byte
+   units, scalar off the 16-byte grid or for longer rows; wgmma for bf16
+   flash attention at head width 64 or 128 and for bf16-x MoE dispatch,
+   simt otherwise), each bitonic sort case its passes, and each row
+   moments and rmsnorm case is held bit-equal across two calls; each
+   rmsnorm case also times ``copy_`` of its input (events and device ms),
+   the card's read-and-write ceiling for the same bytes;
 3. main path: ``generate_proxy`` on K-means at ``SCALE`` (1.0: 400,000
    x 64 f32 points, 32 centroids) with ``substrate="hopper"``, with every
    kernel's launch counter zeroed just before and read just after; a
@@ -105,6 +111,9 @@ P_ROUNDING = 2.0 ** -7
 #: multiple of the 64-token slab, and C, D that rule out vector loads
 MOE_SMALL = ((64, 8, 16, 32), (128, 4, 64, 16), (200, 3, 136, 264),
              (300, 5, 70, 130), (37, 3, 5, 24))
+
+#: sources whose every kernel must compile without spilling
+NO_SPILL = ("bitonic_sort.cu", "rmsnorm.cu")
 
 #: the kernels ``generate_proxy`` on K-means reaches (``kernel_lowerings``)
 MAIN_PATH_KERNELS = ("matmul", "row_moments", "bitonic_sort")
@@ -268,9 +277,28 @@ def phase_env(torch, dev) -> dict:
         f"(compiled={_build.BUILD_INFO['compiled']})")
     report = Path(_build.BUILD_INFO["path"]).with_name("ptxas.txt")
     if report.exists():
-        for line in ptxas_summary(report.read_text()):
+        text = report.read_text()
+        for line in ptxas_summary(text):
             log(f"  ptxas: {line}")
+        spilled = {src: n for src in NO_SPILL
+                   if (n := spill_bytes(text, src))}
+        if spilled:
+            raise fail(f"ptxas spilled in {json.dumps(spilled)} (bytes of "
+                       f"spill stores and loads)")
     return support
+
+
+def spill_bytes(report: str, source: str) -> int:
+    """Bytes of spill stores and loads ptxas reports for the kernels of
+    one source (its ``== <source>`` section of the build's report)."""
+    import re
+
+    head = f"== {source}\n"
+    if head not in report:
+        raise fail(f"the build's ptxas report has no section for {source}")
+    section = report.split(head, 1)[1].split("\n== ", 1)[0]
+    return sum(int(n) for n in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", section))
 
 
 def ptxas_summary(report: str) -> list:
@@ -364,16 +392,24 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
             torch, lambda: torch.var_mean(x, dim=-1, correction=0), iters)
     elif kind == "rmsnorm":
         x, w = args
+        row["form"] = rmsnorm.rmsnorm_form(x)
         call = lambda: rmsnorm.rmsnorm(x, w)  # noqa: E731
-        got = call()
+        got = launch_form(row, rmsnorm.rmsnorm, call)
         want = ref.rmsnorm(x, w)
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(),
                                    **TOL[(kind, row["dtype"])])
+        # the summation order is the launch shape's: the same bits again
+        if not torch.equal(call(), got):
+            raise fail(f"rmsnorm {row['shape']} {row['dtype']}: two calls on "
+                       f"the same input differ ({row['form']} form)")
         row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(torch, lambda: ref.rmsnorm(x, w), iters)
         row["library_ms"] = time_ms(
             torch, lambda: F.rms_norm(x, (x.shape[-1],), w, eps=1e-6), iters)
+        copy = torch.empty_like(x).copy_  # the same bytes read and written
+        row["copy_ms"] = time_ms(torch, lambda: copy(x), iters)
+        row["copy_device_ms"] = device_ms(torch, lambda: copy(x), iters)[0]
     elif kind == "flash_attention":
         q, k, v, causal = args
         fa = flash_attention.flash_attention
@@ -432,7 +468,7 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
             torch, lambda: torch.einsum("tec,td->ecd", mask_x, x), iters)
     else:
         x, block = args
-        sentinel = bitonic_sort.sort_sentinel(x.dtype).item()
+        sentinel = bitonic_sort.SENTINELS[x.dtype]
         call = lambda: bitonic_sort.bitonic_sort_blocks(  # noqa: E731
             x, block=block)
         got = call()
@@ -443,13 +479,20 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
                        f"block={block}: {bad.numel()} keys differ, first at "
                        f"{bad[:4].flatten().tolist()}")
         err = 0.0
+        row["passes"] = f"tile {bitonic_sort.tile_for(block)}: " + ", ".join(
+            f"{kind} {step}" for kind, step in bitonic_sort.bitonic_schedule(
+                block, bitonic_sort.tile_for(block)))
         row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(
             torch, lambda: ref.sort_blocks(x, block, sentinel), iters)
-        # torch has no CUDA sort for uint32: no library call to time
         padded = torch.cat([x, full(((-x.shape[0]) % block,), sentinel,
                                     x.dtype, x.device)])
-        row["library_ms"] = None if x.dtype == torch.uint32 else time_ms(
+        if x.dtype == torch.uint32:
+            # torch has no CUDA sort for uint32: sort the order-preserving
+            # int32 image of the same keys (bits as int32, sign flipped),
+            # built here, outside the timed call
+            padded = padded.view(torch.int32) ^ -(1 << 31)
+        row["library_ms"] = time_ms(
             torch, lambda: torch.sort(padded.view(-1, block), dim=-1), iters)
     row["max_abs_err"] = err
     row["device_ms"], row["device_kernels"] = device_ms(torch, call, iters)
@@ -466,6 +509,10 @@ def fmt_row(r: dict) -> str:
         form = f" [{r['mask_dtype']} mask, {r['form']}]"
     else:
         form = f" [{r['form']}]" if "form" in r else ""
+    if "passes" in r:
+        form = f" [{r['passes']}]"
+    if "copy_ms" in r:
+        form += f" copy_={f(r['copy_ms'])} (device {f(r['copy_device_ms'])})"
     return (f"  {r['kernel']:15s} {r['dtype']:9s} {str(r['shape']):42s} "
             f"err={r['max_abs_err']:.3g}{used} ms={f(r['ms'])} "
             f"device={f(r['device_ms'])} (kernels/call "
@@ -508,6 +555,16 @@ def entry_point_cases(torch, dev, full: bool):
         yield "rmsnorm", (randn(33, 512, dtype=bf16), randn(512)), 20, False
         yield "rmsnorm", (randn(5, 20_000), randn(20_000, dtype=bf16)), 20, \
             False
+        # the vector forms at model widths with rows that leave the last
+        # group part-empty (16 lanes a row, a warp, a block), rows whose
+        # bytes are off the 16-byte grid (2558 in bf16) and a base one
+        # element off it: the scalar form
+        for dtype in (f32, bf16):
+            for r, d in ((1001, 128), (301, 2560), (9, 2558)):
+                yield "rmsnorm", (randn(r, d, dtype=dtype),
+                                  randn(d, dtype=dtype)), 20, False
+            yield "rmsnorm", (randn(33 * 512 + 1, dtype=dtype)[1:].view(
+                33, 512), randn(512, dtype=dtype)), 20, False
         for shape, causal in (((2, 130, 4, 64), True), ((2, 130, 4, 64), False),
                               ((1, 257, 2, 128), True),
                               ((1, 257, 2, 128), False),
@@ -581,6 +638,36 @@ def entry_point_cases(torch, dev, full: bool):
     yield "moe_dispatch", (mask, randn(4096, 2048)), 3, False
 
 
+def sort_cases(torch, dev, g):
+    """(args, timing iterations) of phase 2's bitonic sort cases: the main
+    path's shape; blocks sharing a tile, one a tile, the 2^15 tile, global
+    passes beyond it (2^16 to 2^20: one to four strides a pass, the merge
+    variant's longest runs); ragged inputs; a base one element off the
+    16-byte grid; in all four dtypes; then every block from 2 to 2^16 in
+    uint32 (the main path's type).  Keys from the generator ``g``."""
+    def keys(n, dtype, off=0):  # off: base that many elements past
+        if dtype in (torch.uint32, torch.int32):
+            x = torch.randint(-(1 << 31), 1 << 31, (n + off,), generator=g,
+                              device=dev, dtype=torch.int32)
+            x = x.view(torch.uint32) if dtype == torch.uint32 else x
+        else:
+            x = torch.randn(n + off, generator=g, device=dev).to(dtype)
+        return x[off:]
+
+    for dtype in (torch.uint32, torch.int32, torch.float32, torch.bfloat16):
+        for n, block, off in ((9830, 2048, 0), (1 << 16, 4096, 0),
+                              (100_003, 4096, 0), (100_003, 4096, 1),
+                              (1 << 16, 256, 0), (1 << 18, 1 << 15, 0),
+                              (1 << 18, 1 << 16, 0), (70_001, 1 << 15, 0),
+                              ((1 << 18) + 3, 1 << 17, 0),
+                              ((1 << 18) + 3, 1 << 18, 0),
+                              ((1 << 19) + 3, 1 << 19, 0),
+                              ((1 << 20) + 3, 1 << 20, 0)):
+            yield (keys(n, dtype, off), block), 20
+    for b in range(1, 17):
+        yield (keys(3 * (1 << b) + 1, torch.uint32), 1 << b), 5
+
+
 def phase_kernels(torch, dev) -> list:
     from repro_torch.kernels import matmul, rmsnorm
 
@@ -649,16 +736,8 @@ def phase_kernels(torch, dev) -> list:
                       (16, d_row + 1), (64, 1 << 22), (33, 70_001)):
             add("row_moments", (randn(*shape, dtype=dtype),))
         add("row_moments", (off_grid(33, 4096, dtype=dtype),))
-    for dtype in (torch.uint32, torch.int32, torch.float32, torch.bfloat16):
-        for n, block in ((1 << 16, 4096), (100_003, 4096), (1 << 18, 1 << 16),
-                         (70_001, 1 << 15)):
-            if dtype in (torch.uint32, torch.int32):
-                x = torch.randint(-(1 << 31), 1 << 31, (n,), generator=g,
-                                  device=dev, dtype=torch.int32)
-                x = x.view(torch.uint32) if dtype == torch.uint32 else x
-            else:
-                x = randn(n, dtype=dtype)
-            add("bitonic_sort", (x, block))
+    for args, iters in sort_cases(torch, dev, g):
+        add("bitonic_sort", args, iters)
     for full in (False, True):
         for kind, args, iters, headline in entry_point_cases(torch, dev,
                                                              full):

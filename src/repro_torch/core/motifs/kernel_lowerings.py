@@ -25,7 +25,7 @@ from repro_torch.core.motifs.base import (
 from repro_torch.core.motifs.matrix import chunk_rows
 from repro_torch.core.motifs.sort import merge_rounds
 from repro_torch.kernels import ops
-from repro_torch.kernels.bitonic_sort import sort_sentinel
+from repro_torch.kernels.bitonic_sort import SENTINELS
 from repro_torch.uint32 import full, take, widen
 
 
@@ -64,7 +64,7 @@ def sort_hopper(motif: Motif, p: PVector, inputs: Dict[str, Any],
         blk = _pow2_ceil(chunk)
         if blk != chunk:
             pad = full((runs.shape[0], blk - chunk),
-                       sort_sentinel(runs.dtype).item(), runs.dtype,
+                       SENTINELS[runs.dtype], runs.dtype,
                        runs.device)
             runs = torch.cat([runs, pad], 1)
         flat = ops.bitonic_sort_blocks(runs.reshape(-1), block=blk)

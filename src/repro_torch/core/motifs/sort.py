@@ -18,7 +18,7 @@ import torch
 from repro_torch.core.motifs.base import Motif, PVector, chunked, register
 from repro_torch.data.generators import gen_text_records, make_generator
 from repro_torch.device import resolve_device
-from repro_torch.kernels.bitonic_sort import sort_sentinel
+from repro_torch.kernels.bitonic_sort import SENTINELS
 from repro_torch.uint32 import full, narrow, take, widen
 
 
@@ -60,7 +60,7 @@ def merge_rounds(runs: torch.Tensor) -> torch.Tensor:
     while pow2 < n:
         pow2 *= 2
     if pow2 != n:
-        pad = full((pow2 - n, chunk), sort_sentinel(runs.dtype).item(),
+        pad = full((pow2 - n, chunk), SENTINELS[runs.dtype],
                    runs.dtype, runs.device)
         runs = torch.cat([runs, pad], 0)
     while runs.shape[0] > 1:

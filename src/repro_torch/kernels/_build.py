@@ -50,7 +50,7 @@ SIGNATURES = {
     "repro_matmul": [_I, _I, _P, _P, _P, _L, _L, _L, _P],
     "repro_row_moments": [_I, _P, _P, _P, _P, _L, _L, _I, _P],
     "repro_bitonic_tile": [_I, _P, _P, _L, _L, _I, _I, _I, _I, _P],
-    "repro_bitonic_global": [_I, _P, _L, _I, _I, _I, _P],
+    "repro_bitonic_global": [_I, _P, _L, _I, _I, _I, _I, _P],
     "repro_rmsnorm": [_I, _I, _P, _P, _P, _L, _L, _F, _P],
     "repro_flash_attention": [_I, _P, _P, _P, _P, _L, _L, _L, _L, _I, _F,
                               _I, _P],

@@ -8,13 +8,17 @@ version (``ref.sort_blocks``); a CUDA tensor launches the kernel or
 raises.
 
 The pass order of the network lives here, in :func:`bitonic_schedule`,
-so the CPU tests can replay it: shared-memory tile passes for strides
-below the tile, one global-memory pass per larger stride.
+so the CPU tests can replay it: tile passes sort inside each tile of
+:func:`tile_for` keys (2048..32,768, several blocks to a tile when blocks
+are smaller), and global passes take the strides of larger blocks that
+cross tiles, up to ``GLOBAL_STRIDES`` of them in one read and write of
+the array.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -22,16 +26,25 @@ from repro_torch.kernels import _build, ref
 
 DTYPES = (torch.uint32, torch.int32, torch.float32, torch.bfloat16)
 
-#: keys one thread block sorts in shared memory (32 KB of four-byte keys)
-TILE = 1 << 13
+#: the +max padding of each dtype (sorts after every real key): integer
+#: max for integer dtypes, +inf for floating ones
+SENTINELS: Dict[torch.dtype, object] = {
+    torch.uint32: (1 << 32) - 1, torch.int32: (1 << 31) - 1,
+    torch.float32: float("inf"), torch.bfloat16: float("inf"),
+}
+
+#: most keys one thread block sorts in shared memory (128 KB of
+#: four-byte keys), and fewest: smaller blocks share a tile
+TILE = 1 << 15
+MIN_TILE = 1 << 11
+#: most strides one global pass takes (2**4 keys a thread)
+GLOBAL_STRIDES = 4
 
 
 def sort_sentinel(dtype: torch.dtype) -> torch.Tensor:
     """The +max padding scalar for ``dtype`` (sorts after every real key):
     integer max for integer dtypes, +inf for floating ones."""
-    fill = (float("inf") if dtype.is_floating_point
-            else torch.iinfo(dtype).max)
-    return torch.tensor(fill, dtype=dtype)
+    return torch.tensor(SENTINELS[dtype], dtype=dtype)
 
 
 def effective_block(n: int, block: int) -> int:
@@ -41,19 +54,39 @@ def effective_block(n: int, block: int) -> int:
     return 1 << int(math.log2(max(min(block, n), 2)))
 
 
-def bitonic_schedule(block: int, tile: int) -> List[Tuple[str, int, int]]:
-    """The kernel's passes for power-of-two ``block`` and ``tile`` (<= block).
+def tile_for(block: int) -> int:
+    """Keys one thread block of the tile pass sorts for power-of-two
+    ``block``: the block itself, within [MIN_TILE, TILE]."""
+    return min(max(block, MIN_TILE), TILE)
 
-    ``("tile", k_lo, k_hi)``: stages k_lo..k_hi inside each tile, each
+
+Step = Tuple[int, ...]
+
+
+def bitonic_schedule(block: int, tile: int) -> List[Tuple[str, Step]]:
+    """The kernel's passes for power-of-two ``block`` and ``tile``.
+
+    ``("tile", (k_lo, k_hi))``: stages k_lo..k_hi inside each tile, each
     stage from stride ``2**(min(k, log2 tile) - 1)`` down to 1.
-    ``("global", k, j)``: stage k's substep of stride ``2**j`` (>= tile)
-    over the whole array."""
+    ``("global", (k, j_hi, j_lo))``: stage k's substeps of strides
+    ``2**j_hi`` down to ``2**j_lo`` (>= tile, at most GLOBAL_STRIDES of
+    them) over the whole array, in one pass."""
     b, t = int(math.log2(block)), int(math.log2(tile))
-    steps: List[Tuple[str, int, int]] = [("tile", 1, t)]
+    steps: List[Tuple[str, Step]] = [("tile", (1, min(b, t)))]
     for k in range(t + 1, b + 1):
-        steps.extend(("global", k, j) for j in range(k - 1, t - 1, -1))
-        steps.append(("tile", k, k))
+        for j_hi in range(k - 1, t - 1, -GLOBAL_STRIDES):
+            steps.append(("global",
+                          (k, j_hi, max(j_hi - GLOBAL_STRIDES + 1, t))))
+        steps.append(("tile", (k, k)))
     return steps
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(block: int) -> Tuple[int, int, Tuple[Tuple[str, Step], ...]]:
+    """(log2 block, log2 tile, passes) for ``block``, built once."""
+    tile = tile_for(block)
+    return (block.bit_length() - 1, tile.bit_length() - 1,
+            tuple(bitonic_schedule(block, tile)))
 
 
 def _check(x: torch.Tensor, block: int) -> None:
@@ -70,9 +103,8 @@ def _check(x: torch.Tensor, block: int) -> None:
 
 def _bitonic_sort_blocks_op(x: torch.Tensor, block: int) -> torch.Tensor:
     _check(x, block)
-    sentinel = sort_sentinel(x.dtype).item()
     if x.device.type == "cpu":
-        return ref.sort_blocks(x, block, sentinel)
+        return ref.sort_blocks(x, block, SENTINELS[x.dtype])
     n = x.shape[0]
     n_pad = n + (-n) % block
     out = torch.empty(n_pad, dtype=x.dtype, device=x.device)
@@ -80,18 +112,17 @@ def _bitonic_sort_blocks_op(x: torch.Tensor, block: int) -> torch.Tensor:
         return out
     code = _build.dtype_code(x, DTYPES)
     stream = _build.stream_ptr(x.device)
-    tile = min(block, TILE)
-    log2_block, log2_tile = int(math.log2(block)), int(math.log2(tile))
+    log2_block, log2_tile, steps = _plan(block)
     src, n_src = x, n
-    for kind, a, b in bitonic_schedule(block, tile):
+    for kind, step in steps:
         if kind == "tile":
             _build.call("repro_bitonic_tile", code, src.data_ptr(),
                         out.data_ptr(), n_src, n_pad, log2_block, log2_tile,
-                        a, b, stream)
+                        *step, stream)
             src, n_src = out, n_pad
         else:
             _build.call("repro_bitonic_global", code, out.data_ptr(), n_pad,
-                        log2_block, a, b, stream)
+                        log2_block, *step, stream)
     bitonic_sort_blocks.launches += 1
     return out
 

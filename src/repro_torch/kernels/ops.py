@@ -84,8 +84,8 @@ def sort(x: torch.Tensor, *, block: int = 1024) -> torch.Tensor:
     runs = _bs.bitonic_sort_blocks(x, block=blk).reshape(-1, blk)
     while runs.shape[0] > 1:
         if runs.shape[0] % 2:
-            pad = full((1, runs.shape[1]), _bs.sort_sentinel(x.dtype).item(),
-                       x.dtype, x.device)
+            pad = full((1, runs.shape[1]), _bs.SENTINELS[x.dtype], x.dtype,
+                       x.device)
             runs = torch.cat([runs, pad], 0)
         half = runs.shape[0] // 2
         runs = merge_sorted(runs[:half], runs[half:])

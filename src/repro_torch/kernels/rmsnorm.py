@@ -9,7 +9,11 @@ for each.  A tensor on the CPU runs the plain version (``ref``); a CUDA
 tensor launches the kernel or raises.  Row moments has two forms, named
 by :func:`form` and counted per form in ``row_moments.forms``: one launch
 (small inputs, or rows enough to fill the card) and split rows (two
-launches, for a few long rows).
+launches, for a few long rows).  RMSNorm has two, named by
+:func:`rmsnorm_form` (also ``rmsnorm.form``) and counted in
+``rmsnorm.forms``: ``warp`` (16-byte loads and stores, a part of a warp
+or a warp a row) and ``scalar`` (rows off the 16-byte grid or longer
+than the warp form takes).
 """
 from __future__ import annotations
 
@@ -137,6 +141,24 @@ def _check_rmsnorm(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("rmsnorm wants contiguous operands")
 
 
+RMSNORM_FORMS = ("warp", "scalar")
+#: longest row of the warp form, in 16-byte units (``csrc/rmsnorm.cu``)
+WARP_UNITS = 32 * 12
+
+
+def rmsnorm_form(x: torch.Tensor, w: torch.Tensor = None) -> str:
+    """The RMSNorm form a CUDA call on x runs, by ``csrc/rmsnorm.cu``'s
+    rule: rows whose bytes and base lie on the 16-byte grid, up to
+    ``WARP_UNITS`` 16-byte units a row, take ``warp``; any other row
+    ``scalar``.  The output is a fresh allocation, on the grid; w is read
+    whatever its alignment."""
+    d = x.shape[-1]
+    unit = 16 // x.element_size()
+    if d % unit or d // unit > WARP_UNITS or x.data_ptr() % 16:
+        return "scalar"
+    return "warp"
+
+
 def _rmsnorm_op(x: torch.Tensor, w: torch.Tensor,
                 eps: float) -> torch.Tensor:
     _check_rmsnorm(x, w)
@@ -151,6 +173,7 @@ def _rmsnorm_op(x: torch.Tensor, w: torch.Tensor,
                 _build.dtype_code(w, DTYPES), x.data_ptr(), w.data_ptr(),
                 out.data_ptr(), rows, d, eps, _build.stream_ptr(x.device))
     rmsnorm.launches += 1
+    rmsnorm.forms[rmsnorm_form(x)] += 1
     return out
 
 
@@ -167,3 +190,5 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
 
 
 rmsnorm.launches = 0
+rmsnorm.forms = dict.fromkeys(RMSNORM_FORMS, 0)
+rmsnorm.form = rmsnorm_form

@@ -125,14 +125,29 @@ def test_cuda_row_moments_matches_plain(cuda_device):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+# (n, block, base off the grid): the main path's shape, every block from
+# 2 to 2^16 (blocks sharing a tile, one tile a block, the 2^15 tile and one
+# global pass beyond it), 2^17 to 2^20 (two, three and four strides in one
+# global pass; 2^20 is the merge variant's longest run), ragged inputs,
+# and a base one element past the 16-byte grid
+BITONIC_CASES = ([(5000, 4096, False), (70_001, 1 << 15, False),
+                  (9830, 2048, False), (100_003, 4096, True),
+                  ((1 << 17) + 5, 1 << 17, False)]
+                 + [((1 << b) + 3, 1 << b, False) for b in (18, 19, 20)]
+                 + [(3 * (1 << b) + 1, 1 << b, False) for b in range(1, 17)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["uint32", "int32", "float32", "bfloat16"])
 def test_cuda_bitonic_sort_matches_plain(cuda_device, dtype):
-    for n, block in [(5000, 4096), (70_001, 1 << 15)]:
-        x = to_torch(np_rand(4, (n,), "float32" if dtype == "bfloat16"
-                             else dtype), dtype).to(cuda_device)
-        want = tref.sort_blocks(x, block, tbs.sort_sentinel(x.dtype).item())
-        assert torch.equal(tbs.bitonic_sort_blocks(x, block=block), want)
+    tops.reset_launches()
+    for n, block, off in BITONIC_CASES:
+        x = to_torch(np_rand(4, (n + off,), "float32" if dtype == "bfloat16"
+                             else dtype), dtype).to(cuda_device)[int(off):]
+        want = tref.sort_blocks(x, block, tbs.SENTINELS[x.dtype])
+        assert torch.equal(tbs.bitonic_sort_blocks(x, block=block), want), \
+            (n, block, off)
+    assert tops.launch_counts()["bitonic_sort"] == len(BITONIC_CASES)
 
 
 @pytest.mark.cuda
@@ -160,18 +175,34 @@ FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-4),
              "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 
 
+# (rows, D, base off the grid): the warp form at 16 lanes a row (D = 128
+# in bf16) and a warp (512; 2560 in bf16); the scalar form for rows longer
+# than the warp form takes (2560 in f32: a block holding its row; 20,000:
+# read twice), the rows' bytes off the 16-byte grid (2558 in bf16, 130 in
+# f32) and a base off the grid; rows that do not fill the last group
+RMSNORM_CASES = [(8, 128, False), (33, 512, False), (7, 2560, False),
+                 (5, 20_000, False), (9, 2558, False), (6, 130, False),
+                 (33, 512, True), (1000, 128, False), (301, 2560, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
-    # warp-per-row, block-per-row and the two-read form for long rows; w in
-    # x's type and in the other one (the mixed forms rmsnorm.cu compiles)
-    for rows, d in [(8, 128), (33, 512), (7, 2560), (5, 20_000)]:
-        x = to_torch(np_rand(5, (rows, d), "float32"), dtype).to(cuda_device)
+    # w in x's type and in the other one (the mixed forms rmsnorm.cu
+    # compiles); every call of a case gives the same bits
+    tops.reset_launches()
+    calls = dict.fromkeys(trm.RMSNORM_FORMS, 0)
+    for rows, d, off in RMSNORM_CASES:
+        x = _on_card(cuda_device, 5, (rows, d), dtype, off)
         for w_dtype in ("float32", "bfloat16"):
             w = to_torch(np_rand(6, (d,), "float32"), w_dtype).to(cuda_device)
-            torch.testing.assert_close(tops.rmsnorm(x, w).float(),
-                                       tref.rmsnorm(x, w).float(),
+            got = tops.rmsnorm(x, w)
+            torch.testing.assert_close(got.float(), tref.rmsnorm(x, w).float(),
                                        **RMSNORM_TOL[dtype])
+            assert torch.equal(tops.rmsnorm(x, w), got)
+            calls[trm.rmsnorm_form(x)] += 2
+    assert tops.rmsnorm.forms == calls
+    assert all(calls.values())  # every form ran
 
 
 @pytest.mark.cuda

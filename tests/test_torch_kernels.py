@@ -125,13 +125,22 @@ def test_sort_sentinel_equals_reference(dtype):
     assert as_np(got).item() == as_np(want).item()
 
 
+@pytest.mark.parametrize("dtype", ["uint32", "int32", "float32", "bfloat16"])
+def test_sentinel_table_equals_reference(dtype):
+    """The wrappers' constant table pads with the reference's sentinel."""
+    want = as_np(jbs.sort_sentinel(getattr(jnp, dtype))).item()
+    assert tbs.SENTINELS[getattr(torch, dtype)] == want
+
+
 def _emulate_network(x: np.ndarray, block: int, tile: int) -> np.ndarray:
     """numpy replay of the CUDA kernel's passes (``bitonic_schedule``):
-    the same pair indices and direction rule as ``csrc/bitonic_sort.cu``."""
+    the same pair indices and direction rule as ``csrc/bitonic_sort.cu``;
+    a global pass applies its strides in order, as the kernel does in
+    registers."""
     n = x.shape[0]
     n_pad = n + (-n) % block
-    buf = np.concatenate([x, np.full(n_pad - n, tbs.sort_sentinel(
-        torch.from_numpy(x[:1]).dtype).item(), x.dtype)])
+    buf = np.concatenate([x, np.full(n_pad - n, tbs.SENTINELS[
+        torch.from_numpy(x[:1]).dtype], x.dtype)])
     lt = int(math.log2(tile))
 
     def substep(k, j, idx):  # idx: global lower indices of the pairs
@@ -146,11 +155,14 @@ def _emulate_network(x: np.ndarray, block: int, tile: int) -> np.ndarray:
         p = np.arange(length // 2)
         return ((p >> j) << (j + 1)) | (p & ((1 << j) - 1))
 
-    for kind, a, b in tbs.bitonic_schedule(block, tile):
+    for kind, step in tbs.bitonic_schedule(block, tile):
         if kind == "global":
-            substep(a, b, pairs(b, n_pad))
+            k, j_hi, j_lo = step
+            assert 1 <= j_hi - j_lo + 1 <= tbs.GLOBAL_STRIDES and j_lo >= lt
+            for j in range(j_hi, j_lo - 1, -1):
+                substep(k, j, pairs(j, n_pad))
             continue
-        for k in range(a, b + 1):
+        for k in range(step[0], step[1] + 1):
             for j in range(min(k, lt) - 1, -1, -1):
                 substep(k, j, pairs(j, n_pad))  # every tile's pairs at once
     return buf
@@ -160,6 +172,10 @@ def _emulate_network(x: np.ndarray, block: int, tile: int) -> np.ndarray:
     (1000, 256, 256),        # one shared-memory pass per block
     (5000, 4096, 64),        # global passes for strides >= the tile
     (70_001, 1 << 15, tbs.TILE),  # the kernel's own tile, ragged input
+    (9830, 2048, tbs.tile_for(2048)),  # the main path's shape
+    (1000, 64, tbs.tile_for(64)),  # blocks sharing one tile
+    ((1 << 17) + 3, 1 << 17, tbs.tile_for(1 << 17)),  # global passes
+    ((1 << 20) + 3, 1 << 20, tbs.tile_for(1 << 20)),  # four strides a pass
 ])
 @pytest.mark.parametrize("dtype", ["uint32", "float32"])
 def test_bitonic_schedule_sorts_like_the_plain_version(n, block, tile, dtype):
@@ -167,8 +183,23 @@ def test_bitonic_schedule_sorts_like_the_plain_version(n, block, tile, dtype):
     x = np_rand(7, (n,), dtype)
     got = _emulate_network(x, block, tile)
     want = tref.sort_blocks(to_torch(x), block,
-                            tbs.sort_sentinel(getattr(torch, dtype)).item())
+                            tbs.SENTINELS[getattr(torch, dtype)])
     np.testing.assert_array_equal(got, as_np(want))
+
+
+@pytest.mark.parametrize("block,tiles,passes", [
+    (2, 1, 0), (1024, 1, 0), (2048, 1, 0), (1 << 15, 1, 0),
+    (1 << 16, 2, 1),          # stage 16: one stride above the tile
+    (1 << 17, 3, 2),          # stage 17: two strides in one pass
+    (1 << 20, 6, 6),          # stage 20: five strides in two passes
+])
+def test_bitonic_schedule_counts_launches(block, tiles, passes):
+    """One tile launch up to TILE keys a block; beyond it, one tile launch
+    a stage and at most GLOBAL_STRIDES strides a global pass."""
+    steps = tbs.bitonic_schedule(block, tbs.tile_for(block))
+    assert sum(kind == "tile" for kind, _ in steps) == tiles
+    assert sum(kind == "global" for kind, _ in steps) == passes
+    assert tbs.MIN_TILE <= tbs.tile_for(block) <= tbs.TILE
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

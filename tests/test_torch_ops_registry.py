@@ -176,3 +176,35 @@ def test_row_moments_form_and_splits(rows, d, itemsize, form):
         # one wave of pass-1 blocks, never a segment below MIN_SEGMENT
         assert rows * splits <= trm.TARGET_BLOCKS
         assert d // splits >= trm.MIN_SEGMENT
+
+
+@pytest.mark.parametrize("rows,d,dtype,form", [
+    (32768, 2560, torch.bfloat16, "warp"),    # qwen3-4b's d_model: a warp
+    (32768, 128, torch.bfloat16, "warp"),     # its qk-norm: 16 lanes a row
+    (8, 8 * trm.WARP_UNITS, torch.bfloat16, "warp"),  # the warp form's bound
+    (8, 8 * trm.WARP_UNITS + 8, torch.bfloat16, "scalar"),  # one unit more
+    (32768, 2560, torch.float32, "scalar"),   # 640 units: a block a row
+    (5, 20_000, torch.bfloat16, "scalar"),    # read twice
+    (7, 2558, torch.bfloat16, "scalar"),      # row bytes off the 16-byte grid
+    (8, 130, torch.float32, "scalar"),
+])
+def test_rmsnorm_form_follows_the_row_bytes(rows, d, dtype, form):
+    x = torch.empty(rows, d, dtype=dtype)
+    assert trm.rmsnorm_form(x) == form
+    assert tops.rmsnorm.form(x, torch.empty(d)) == form
+    # a base one element past the 16-byte grid takes scalar loads
+    off = torch.empty(rows * d + 1, dtype=dtype)[1:].view(rows, d)
+    assert trm.rmsnorm_form(off) == "scalar"
+
+
+def test_rmsnorm_warp_bound_matches_the_source():
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    found = re.search(r"constexpr long long WARP_UNITS = 32 \* (\d+);", src)
+    assert found and 32 * int(found.group(1)) == trm.WARP_UNITS
+
+
+def test_rmsnorm_on_the_cpu_counts_no_form():
+    tops.reset_launches()
+    tops.rmsnorm(torch.randn(4, 128), torch.randn(128))
+    assert tops.rmsnorm.forms == dict.fromkeys(trm.RMSNORM_FORMS, 0)
+    assert tops.launch_counts()["rmsnorm"] == 0
