@@ -41,6 +41,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    one device kernel fails the run;
 6. traces: one ``torch.profiler`` run each of the K-means step and the
    tuned proxy — wall time, device busy share, top device kernels;
+6b. workloads: phases 3 to 6 for each of TeraSort (2M records), PageRank
+   (262,144 vertices, 4,194,304 zipf edges), AlexNet (batch 128, 32x32x3)
+   and Inception-V3 (batch 32, 75x75x3) at ``SCALE``: ``generate_proxy``
+   with ``substrate="hopper"`` and ``MAX_ITERS``, counters zeroed
+   just before and read just after (TeraSort must launch the bitonic sort,
+   AlexNet and Inception-V3 matmul and row moments; the lowering declines
+   all of PageRank's hinted variants); the step on the card against the
+   same step on CPU copies of its inputs (TeraSort exact, PageRank
+   ``PAGERANK_TOL``, the AI steps ``AI_STEP_TOL`` with TF32 allowed around
+   the card's call); the tuned proxy against its stock form; the path's
+   kernels at the proxy's shapes; traces of the step and the proxy;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -52,7 +63,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 The last lines are the kernel table as JSON (all six kernels: the first
 three with their launches over phase 3 and their phase-5 times, the other
 three with their launches over phase 7 and their full-width phase-2
-times, each with its device ms), the card's name and power limit, and
+times, each with its device ms, and each with its launches over every
+workload of phase 6b and its times at those workloads' shapes), the
+card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: the script
 exits non-zero without a CUDA device, and outside a checkout.
 """
@@ -117,6 +130,29 @@ NO_SPILL = ("bitonic_sort.cu", "rmsnorm.cu")
 
 #: the kernels ``generate_proxy`` on K-means reaches (``kernel_lowerings``)
 MAIN_PATH_KERNELS = ("matmul", "row_moments", "bitonic_sort")
+
+#: the kernels each workload's proxy reaches through the lowerings of its
+#: hinted motifs (``kernel_lowerings``); the lowering declines all four of
+#: PageRank's
+PATH_KERNELS = {"kmeans": MAIN_PATH_KERNELS, "terasort": ("bitonic_sort",),
+                "pagerank": (), "alexnet": ("matmul", "row_moments"),
+                "inception_v3": ("matmul", "row_moments")}
+
+#: the workloads phase: the other four workloads at SCALE (TeraSort 2M
+#: records, PageRank 262,144 vertices and 4,194,304 edges, AlexNet batch
+#: 128 at 32x32x3, Inception-V3 batch 32 at 75x75x3)
+WORKLOAD_NAMES = ("terasort", "pagerank", "alexnet", "inception_v3")
+
+#: the card's step against the host's on the same inputs.  PageRank's
+#: per-vertex f32 sums run in another order (atomics on the card, one
+#: pass on the host) over up to ~860,000 in-edges of a hub: at scale 1.0
+#: the host's own hub sum is 2.4e-3 off its float64 value, and a sum of n
+#: terms in a random order moves by ~sqrt(n)·2^-24 ≈ 5.5e-5 of itself; a
+#: vertex of average in-degree 16 that lost one edge would move by 6 %.
+#: The AI steps: loss and new params at 2e-4, with TF32 allowed around
+#: the card's call, so that a step that took it is caught.
+PAGERANK_TOL = dict(rtol=1e-3, atol=1e-9)
+AI_STEP_TOL = dict(rtol=2e-4, atol=2e-5)
 
 #: the main path's size: K-means at full scale (400,000 x 64 f32 points,
 #: 32 centroids), tuned for the reference generate_proxy's default
@@ -748,28 +784,27 @@ def phase_kernels(torch, dev) -> list:
     return rows
 
 
-def phase_main(torch, dev):
+def run_generate(torch, dev, name: str, args):
+    """``generate_proxy`` on workload ``name`` with ``substrate="hopper"``,
+    every launch counter zeroed just before and read just after; logs the
+    report.  Fails if a kernel ``PATH_KERNELS[name]`` names was never
+    launched, or the tuned proxy lost a hinted motif."""
     from repro_torch.core.generator import generate_proxy
     from repro_torch.kernels import ops
     from repro_torch.workloads import WORKLOADS
 
-    w = WORKLOADS["kmeans"]
-    args = w.inputs(seed=0, scale=SCALE, device=dev)
-    x, c = args
-    log(f"kmeans inputs: x {tuple(x.shape)} {x.dtype} "
-        f"({x.numel() * x.element_size() / 1e6:.1f} MB, "
-        f"{(x == 0).float().mean().item():.3f} zeros), centroids "
-        f"{tuple(c.shape)}")
+    w = WORKLOADS[name]
+    path = "the main path" if name == "kmeans" else f"{name}'s generate_proxy"
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
-    pb, rep = generate_proxy(w.step, *args, name="kmeans", hints=w.hints,
+    pb, rep = generate_proxy(w.step, *args, name=name, hints=w.hints,
                              max_iters=MAX_ITERS, run=True,
                              substrate="hopper", device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = ops.launch_counts()
-    log(f"generate_proxy: {seconds:.1f} s  {rep.summary()}")
+    log(f"generate_proxy {name}: {seconds:.1f} s  {rep.summary()}")
     log(f"  qualified={rep.qualified} mean_accuracy={rep.mean_accuracy:.4f} "
         f"evals={rep.evals} iterations={rep.iterations} "
         f"real_wall_s={rep.real_wall_time} proxy_wall_s={rep.proxy_wall_time} "
@@ -784,16 +819,51 @@ def phase_main(torch, dev):
         log(f"  node {n.id} {n.motif}/{n.variant} data_size={p.data_size} "
             f"chunk_size={p.chunk_size} num_tasks={p.num_tasks} "
             f"weight={p.weight:.3f} batch_size={p.batch_size} "
-            f"channels={p.channels} substrate={p.substrate}")
-    log(f"launches over the main path: {json.dumps(counts)}")
-    missing = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
+            f"height={p.height} width={p.width} channels={p.channels} "
+            f"substrate={p.substrate}")
+    log(f"launches over {path}: {json.dumps(counts)}")
+    if not PATH_KERNELS[name]:
+        log(f"  {name}: the hopper lowering declines every hinted variant "
+            f"({', '.join(f'{h.motif}/{h.variant}' for h in w.hints)}), "
+            f"so its proxy runs on stock ATen alone")
+    missing = [k for k in PATH_KERNELS[name] if counts[k] == 0]
     if missing:
-        raise fail(f"kernels never launched on the main path: {missing}")
+        raise fail(f"kernels never launched on {path}: {missing}")
     if not 0.0 <= rep.mean_accuracy <= 1.0:
-        raise fail(f"mean accuracy {rep.mean_accuracy} outside [0, 1]")
+        raise fail(f"{name}: mean accuracy {rep.mean_accuracy} outside "
+                   f"[0, 1]")
     if {(n.motif, n.variant) for n in pb.nodes} != {
             (h.motif, h.variant) for h in w.hints}:
-        raise fail("the tuned proxy lost a hinted motif")
+        raise fail(f"the tuned {name} proxy lost a hinted motif")
+    return pb, rep, counts, seconds
+
+
+def phase_main_all(torch, dev) -> list:
+    """The main path, its checks, its kernels at its shapes (the kernels
+    JSON's first three rows) and its traces."""
+    from repro_torch.workloads import WORKLOADS
+
+    pb, rep, counts, args = phase_main(torch, dev)
+    phase_checks(torch, dev, pb, args)
+    entries = phase_main_shapes(torch, dev, pb, counts)
+    phase_trace(torch, dev, "kmeans step",
+                lambda: WORKLOADS["kmeans"].step(*args))
+    vals = pb.lifted_values(dev)
+    proxy_fn = pb.build_eval_fn(dev)
+    phase_trace(torch, dev, "tuned proxy", lambda: proxy_fn(0, vals))
+    return entries
+
+
+def phase_main(torch, dev):
+    from repro_torch.workloads import WORKLOADS
+
+    args = WORKLOADS["kmeans"].inputs(seed=0, scale=SCALE, device=dev)
+    x, c = args
+    log(f"kmeans inputs: x {tuple(x.shape)} {x.dtype} "
+        f"({x.numel() * x.element_size() / 1e6:.1f} MB, "
+        f"{(x == 0).float().mean().item():.3f} zeros), centroids "
+        f"{tuple(c.shape)}")
+    pb, rep, counts, _ = run_generate(torch, dev, "kmeans", args)
     return pb, rep, counts, args
 
 
@@ -820,7 +890,12 @@ def phase_checks(torch, dev, pb, args) -> None:
     log(f"checks: kmeans step finite, counts sum {x.shape[0]}, "
         f"equal to the host's; inertia {inertia.item():.6g} "
         f"(host {hi.item():.6g})")
+    check_substrates(torch, dev, pb)
 
+
+def check_substrates(torch, dev, pb) -> None:
+    """The tuned proxy's outputs on the kernels against its stock-PyTorch
+    form on the same inputs."""
     vals = pb.lifted_values(dev)
     got = pb.build_eval_fn(dev)(0, vals)
     want = pb.with_substrate("torch").build_eval_fn(dev)(0, vals)
@@ -846,6 +921,109 @@ def phase_checks(torch, dev, pb, args) -> None:
                 detail = "equal"
             log(f"checks: {nid}.{key} {tuple(g.shape)} {g.dtype} hopper vs "
                 f"torch: {detail}")
+
+
+def _close(what: str, got, want, rtol: float, atol: float) -> float:
+    """Max abs error of ``got`` (on the card) against ``want`` (host);
+    fails the run past ``|d| <= atol + rtol·|want|``."""
+    g, w = got.detach().cpu().double(), want.detach().double()
+    err = (g - w).abs()
+    if not bool((err <= atol + rtol * w.abs()).all()):
+        raise fail(f"{what}: card and host differ (max abs err "
+                   f"{err.max().item():.3g}, rtol {rtol}, atol {atol})")
+    return err.max().item()
+
+
+def check_step(torch, name: str, args) -> None:
+    """One step of workload ``name`` on the card against the same step on
+    CPU copies of its inputs."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.uint32 import bits, widen
+    from repro_torch.workloads import WORKLOADS, inception_v3
+
+    step = WORKLOADS[name].step
+    if name == "inception_v3":
+        # the card's and the host's generators differ: draw the head's
+        # keep mask once, on the card, and give both steps the same mask
+        params, images, labels, rng = args
+        keep = inception_v3.keep_mask(params, images, rng)
+        step, args = inception_v3.step_with_keep, (params, images, labels,
+                                                  keep)
+    host = tree_map(lambda t: t.cpu(), args)
+    if name == "terasort":
+        got, want = step(*args), step(*host)
+        for what, g, w in zip(("keys", "payload", "offsets"), got, want):
+            if not torch.equal(bits(g).cpu(), bits(w)):
+                raise fail(f"terasort {what}: card and host differ")
+        k = widen(got[0])
+        if not bool((k[1:] >= k[:-1]).all()):
+            raise fail("terasort keys are not sorted")
+        log(f"checks: terasort step equal to the host's (keys, payload, "
+            f"offsets), keys sorted, offsets {got[2][:4].tolist()}...")
+        return
+    if name == "pagerank":
+        got, want = step(*args), step(*host)
+        if not torch.equal(got[3].cpu(), want[3]):
+            raise fail("pagerank in_deg: card and host differ")
+        errs = [_close(f"pagerank {what}", g, w, **PAGERANK_TOL)
+                for what, g, w in zip(("ranks", "top", "delta"), got, want)]
+        rel = ((got[0].cpu().double() - want[0].double()).abs()
+               / want[0].double().abs()).max().item()
+        log(f"checks: pagerank step in_deg equal to the host's; ranks, top, "
+            f"delta max abs err {errs} (ranks max rel err {rel:.3g}); "
+            f"rank sum {got[0].sum().item():.6g}, top {got[1][:3].tolist()}")
+        return
+    # TF32 allowed around the card's call: the step must not take it
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        new, loss = step(*args)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    hnew, hloss = step(*host)
+    if not torch.isfinite(loss):
+        raise fail(f"{name} loss is not finite")
+    err = _close(f"{name} loss", loss, hloss, **AI_STEP_TOL)
+    perr = max(_close(f"{name} new {k}", new[k], hnew[k],
+                      **AI_STEP_TOL) for k in new)
+    log(f"checks: {name} step with TF32 allowed: loss {loss.item():.6g} "
+        f"(host {hloss.item():.6g}, |d| {err:.3g}); new params max |d| "
+        f"{perr:.3g} over {len(new)} tensors")
+
+
+def phase_workloads(torch, dev) -> tuple:
+    """``generate_proxy`` on each of the other four workloads, its step held
+    against the host's, its tuned proxy against the stock form, the path's
+    kernels at the shapes the proxy gives them, and traces.  Returns
+    ``{workload: launch counts over its generate_proxy}`` and the kernel
+    rows."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.workloads import WORKLOADS
+
+    launches, rows = {}, []
+    for name in WORKLOAD_NAMES:
+        w = WORKLOADS[name]
+        args = w.inputs(seed=0, scale=SCALE, device=dev)
+        ts = tree_leaves(args)
+        log(f"{name} inputs: {len(ts)} tensors, "
+            f"{sum(t.numel() * t.element_size() for t in ts) / 1e6:.1f} MB: "
+            + ", ".join(f"{tuple(t.shape)} {str(t.dtype)[6:]}"
+                        for t in ts[:4]) + (" ..." if len(ts) > 4 else ""))
+        pb, rep, counts, _ = run_generate(torch, dev, name, args)
+        launches[name] = counts
+        check_step(torch, name, args)
+        check_substrates(torch, dev, pb)
+        rows += path_shapes(torch, dev, name, pb)
+        phase_trace(torch, dev, f"{name} step", lambda: w.step(*args))
+        vals = pb.lifted_values(dev)
+        proxy_fn = pb.build_eval_fn(dev)
+        phase_trace(torch, dev, f"{name} tuned proxy",
+                    lambda: proxy_fn(0, vals))
+    return launches, rows
 
 
 class _Recorder:
@@ -875,31 +1053,42 @@ class _Recorder:
         self.mode = Mode()
 
 
-def phase_main_shapes(torch, dev, pb, counts) -> list:
-    """Each kernel on the largest inputs the tuned proxy gives it."""
+def path_shapes(torch, dev, name: str, pb) -> list:
+    """Each kernel of workload ``name``'s path on the largest inputs its
+    tuned proxy gives it, against its plain version, timed, with its
+    bound."""
     from repro_torch.kernels import ops
 
     rec = _Recorder(torch)
     vals = pb.lifted_values(dev)
     with rec.mode:
         pb.build_eval_fn(dev)(0, vals)
-    entries = []
-    for name in MAIN_PATH_KERNELS:
-        kernel = ops.KERNELS[name]
-        if name not in rec.calls:
-            raise fail(f"the tuned proxy gave {name} no input")
-        args = rec.calls[name][1]
-        if name == "matmul":
+    rows = []
+    for kernel in PATH_KERNELS[name]:
+        if kernel not in rec.calls:
+            raise fail(f"the tuned {name} proxy gave {kernel} no input")
+        args = rec.calls[kernel][1]
+        if kernel == "matmul":
             args = tuple(args[:2])
-        elif name == "row_moments":
+        elif kernel == "row_moments":
             args = (args[0],)
-        r = check_kernel(torch, name, tuple(args), iters=50)
-        log("main-path shape:" + fmt_row(r)[1:])
-        if r.get("form") == "one_launch" and r["device_kernels"] != 1:
+        r = check_kernel(torch, kernel, tuple(args), iters=50)
+        log(f"{name} path shape:" + fmt_row(r)[1:])
+        # the profiler may drop an event of the 50 calls (0.98 a call)
+        if (r.get("form") == "one_launch"
+                and round(r["device_kernels"] or 0) != 1):
             raise fail(f"row_moments at {r['shape']} (one-launch form) ran "
                        f"{r['device_kernels']} device kernels a call")
-        entries.append(kernel_entry(name, counts[name], r))
-    return entries
+        r["workload"] = name
+        rows.append(r)
+    return rows
+
+
+def phase_main_shapes(torch, dev, pb, counts) -> list:
+    """Each main-path kernel on the largest inputs the tuned proxy gives
+    it: the kernels JSON's rows for them."""
+    return [kernel_entry(r["kernel"], counts[r["kernel"]], r)
+            for r in path_shapes(torch, dev, "kmeans", pb)]
 
 
 def kernel_entry(name: str, launches: int, r: dict) -> dict:
@@ -1013,10 +1202,10 @@ def phase_trace(torch, dev, name: str, fn) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,main,bench",
+    ap.add_argument("--phases", default="env,kernels,main,workloads,bench",
                     help="comma list of env, kernels, main (main includes "
-                         "the checks and main-path shapes), bench (needs "
-                         "kernels)")
+                         "the checks and main-path shapes), workloads (the "
+                         "other four workloads), bench (needs kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     if "bench" in phases and "kernels" not in phases:
@@ -1039,22 +1228,31 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    phase_env(torch, dev)  # always: the build is every phase's set-up
-    kernel_rows = phase_kernels(torch, dev) if "kernels" in phases else []
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("env", phase_env, torch, dev)  # always: every phase's set-up
+    kernel_rows = (timed("kernels", phase_kernels, torch, dev)
+                   if "kernels" in phases else [])
     entries = []
     if "main" in phases:
-        pb, rep, counts, args = phase_main(torch, dev)
-        phase_checks(torch, dev, pb, args)
-        entries = phase_main_shapes(torch, dev, pb, counts)
-        from repro_torch.workloads import WORKLOADS
-
-        phase_trace(torch, dev, "kmeans step",
-                    lambda: WORKLOADS["kmeans"].step(*args))
-        vals = pb.lifted_values(dev)
-        proxy_fn = pb.build_eval_fn(dev)
-        phase_trace(torch, dev, "tuned proxy", lambda: proxy_fn(0, vals))
+        entries = timed("main", phase_main_all, torch, dev)
+    launches, path_rows = {}, []
+    if "workloads" in phases:
+        launches, path_rows = timed("workloads", phase_workloads, torch, dev)
     if "bench" in phases:
-        entries += phase_bench(torch, dev, kernel_rows)
+        entries += timed("bench", phase_bench, torch, dev, kernel_rows)
+    for e in entries:  # the other workloads' paths, beside the main one
+        e["workload_launches"] = {w: c[e["name"]]
+                                  for w, c in launches.items()}
+        e["workload_shapes"] = [
+            {k: r[k] for k in ("workload", "shape", "dtype", "max_abs_err",
+                               "ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}
+            for r in path_rows if r["kernel"] == e["name"]]
     log("kernels: " + ", ".join(f"{e['name']}={e['launches']}"
                                 for e in entries))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,13 +1,15 @@
-"""What crosses between the JAX package and the port: proxies, arrays and
-signatures.  The system has no weights; both packages compute on the
-same proxy JSON and the same numpy arrays.  Nothing here imports the JAX
-package: proxies arrive as JSON text, arrays as numpy, signatures as
-plain field dictionaries.
+"""What crosses between the JAX package and the port: proxies, arrays,
+signatures and workload params.  The proxy system itself has no weights;
+both packages compute on the same proxy JSON and the same numpy arrays.
+The AI workloads' params differ only in layout: the reference keeps conv
+kernels HWIO, the port OIHW (dense matrices are ``(din, dout)`` in both).
+Nothing here imports the JAX package: proxies arrive as JSON text,
+arrays and params as numpy, signatures as plain field dictionaries.
 """
 from __future__ import annotations
 
 import json
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -52,6 +54,23 @@ def tensors_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     if isinstance(tree, (np.ndarray, np.generic)):
         return _tensor(np.asarray(tree), dev)
     return tree
+
+
+def params_from_reference(params: Mapping[str, Any],
+                          device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A reference workload's params (numpy, conv kernels HWIO) as the
+    port's, on ``device``: conv kernels OIHW, every other array as it is."""
+    tensors = tensors_from_numpy(dict(params), device)
+    return {k: v.permute(3, 2, 0, 1).contiguous() if v.ndim == 4 else v
+            for k, v in tensors.items()}
+
+
+def params_to_reference(params: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_reference`: numpy, conv kernels
+    HWIO."""
+    return {k: (v.permute(2, 3, 1, 0) if v.ndim == 4 else v).detach().cpu()
+            .contiguous().numpy() for k, v in params.items()}
 
 
 _SIGNATURE_FIELDS = ("flops", "bytes", "transcendentals", "peak_memory",

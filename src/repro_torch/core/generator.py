@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.core.accuracy import (
     COLLECTIVE_METRICS,
@@ -102,7 +103,9 @@ def select_metrics(target: Mapping[str, float],
 
 
 def _check_args_device(args, dev: torch.device) -> None:
-    for a in args:
+    """Every tensor of the arguments' pytree (a params dict included) must
+    lie on the proxy's device type."""
+    for a in tree_leaves(args):
         if isinstance(a, torch.Tensor) and a.device.type != dev.type:
             raise ValueError(f"workload argument on {a.device}, but the "
                              f"proxy runs on {dev}")

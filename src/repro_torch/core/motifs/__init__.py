@@ -1,5 +1,5 @@
-"""The data motifs of the port's first slice — sort, matrix and
-statistics, the three K-means needs — as parameterized PyTorch modules."""
+"""The eight data motifs (paper §II-A) as parameterized PyTorch modules
+(port of ``repro/core/motifs/__init__.py``)."""
 from repro_torch.core.motifs.base import (  # noqa: F401
     MOTIFS,
     SUBSTRATES,
@@ -8,10 +8,20 @@ from repro_torch.core.motifs.base import (  # noqa: F401
     PVector,
     get_motif,
     lowered_motifs,
+    motif_names,
 )
 
 # importing the modules populates the registry
-from repro_torch.core.motifs import matrix, sort, statistics  # noqa: F401
+from repro_torch.core.motifs import (  # noqa: F401
+    graph,
+    logic,
+    matrix,
+    sampling,
+    set_ops,
+    sort,
+    statistics,
+    transform,
+)
 
 # ... and this one the substrate-lowering registry (substrate="hopper")
 from repro_torch.core.motifs import kernel_lowerings  # noqa: F401  (isort: skip)

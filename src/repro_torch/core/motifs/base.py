@@ -141,6 +141,8 @@ class Motif:
     default_variant: str = ""
     #: P fields this motif responds to (the tuner only moves these)
     tunable: Tuple[str, ...] = ("data_size", "chunk_size", "num_tasks", "weight")
+    #: input data type: keys | records | vectors | graph | images | bits
+    data_kind: str = "vectors"
 
     def make_inputs(self, p: PVector, seed: int,
                     device: Optional[torch.device] = None) -> Any:
@@ -288,6 +290,10 @@ def register(cls):
     return cls
 
 
+def motif_names() -> Tuple[str, ...]:
+    return tuple(sorted(MOTIFS))
+
+
 def get_motif(name: str) -> Motif:
     if name not in MOTIFS:
         raise KeyError(f"unknown motif {name!r}; have {sorted(MOTIFS)}")
@@ -306,6 +312,20 @@ def chunked(p: PVector, x: torch.Tensor) -> torch.Tensor:
     per = max(n // (tasks * chunk), 1)
     used = tasks * per * chunk
     return x[:used].reshape((tasks, per, chunk) + tuple(x.shape[1:]))
+
+
+def segment_count(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 occurrence count of each id in [0, n): ``jax.ops.segment_sum``
+    of ones, through ``index_add_``."""
+    out = torch.zeros(n, dtype=torch.int32, device=ids.device)
+    return out.index_add_(0, ids.to(torch.int64), torch.ones_like(ids))
+
+
+def segment_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Sum of ``vals`` per id in [0, n) (``index_add_``: on CUDA, float
+    adds land through atomics, in no fixed order)."""
+    out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, ids.to(torch.int64), vals)
 
 
 def combine(parts: torch.Tensor) -> torch.Tensor:

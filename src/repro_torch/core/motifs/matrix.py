@@ -9,6 +9,8 @@ Paper Table III implementations covered:
 The reference maps a per-chunk body over tasks and chunks; every row of
 those bodies is independent, so here each variant is one batched
 computation over the ``(tasks·per·chunk, dim)`` rows of the chunk layout.
+Products run in full f32 whatever the caller's TF32 flags
+(:func:`repro_torch.device.full_f32`).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from repro_torch.core.motifs.base import Motif, PVector, chunked, combine, register
 from repro_torch.data.generators import gen_vectors, make_generator
-from repro_torch.device import resolve_device
+from repro_torch.device import full_f32, resolve_device
 
 
 def _dims(p: PVector):
@@ -41,6 +43,7 @@ class MatrixMotif(Motif):
     variants = ("euclidean", "cosine", "construct", "matmul", "fully_connected")
     default_variant = "matmul"
     tunable = ("data_size", "chunk_size", "num_tasks", "weight", "batch_size")
+    data_kind = "vectors"
 
     def make_inputs(self, p: PVector, seed: int,
                     device: Optional[torch.device] = None) -> Dict[str, Any]:
@@ -52,6 +55,7 @@ class MatrixMotif(Motif):
         w = gen_vectors(gen, dim, dim, p.spec())
         return {"x": x, "centroids": centroids, "w": w}
 
+    @full_f32()  # the reference's products are full f32
     def apply(self, p: PVector, inputs: Dict[str, Any], variant: str = "") -> Any:
         v = self.resolve_variant(variant)
         x, c, w = inputs["x"], inputs["centroids"], inputs["w"]

@@ -76,6 +76,7 @@ class SortMotif(Motif):
     default_variant = "quick"
     # `channels` doubles as the record payload width (words per key)
     tunable = ("data_size", "chunk_size", "num_tasks", "weight", "channels")
+    data_kind = "records"
 
     def make_inputs(self, p: PVector, seed: int,
                     device: Optional[torch.device] = None) -> Dict[str, Any]:

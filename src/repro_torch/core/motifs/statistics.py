@@ -16,16 +16,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.core.motifs.base import Motif, PVector, chunked, register
+from repro_torch.core.motifs.base import (Motif, PVector, chunked, register,
+                                          segment_count)
 from repro_torch.data.generators import (gen_graph, gen_images, gen_vectors,
                                          make_generator)
 from repro_torch.device import resolve_device
-
-
-def _segment_count(ids: torch.Tensor, n: int) -> torch.Tensor:
-    """int32 occurrence count of each id in [0, n)."""
-    out = torch.zeros(n, dtype=torch.int32, device=ids.device)
-    return out.index_add_(0, ids.to(torch.int64), torch.ones_like(ids))
 
 
 @register
@@ -35,6 +30,7 @@ class StatisticsMotif(Motif):
     default_variant = "average"
     tunable = ("data_size", "chunk_size", "num_tasks", "weight",
                "batch_size", "channels")
+    data_kind = "mixed"
 
     def make_inputs(self, p: PVector, seed: int,
                     device: Optional[torch.device] = None) -> Dict[str, Any]:
@@ -57,7 +53,7 @@ class StatisticsMotif(Motif):
         x = inputs["x"]
 
         if v == "count":
-            return {"counts": _segment_count(inputs["labels"],
+            return {"counts": segment_count(inputs["labels"],
                                              max(p.channels, 2))}
 
         if v == "average":
@@ -72,8 +68,8 @@ class StatisticsMotif(Motif):
 
         if v == "degree":
             nv = max(int(p.data_size) // 64, 16)  # matches make_inputs
-            in_deg = _segment_count(inputs["dst"], nv)
-            return {"out_deg": _segment_count(inputs["src"], nv),
+            in_deg = segment_count(inputs["dst"], nv)
+            return {"out_deg": segment_count(inputs["src"], nv),
                     "in_deg": in_deg, "max_in": torch.amax(in_deg)}
 
         if v == "batchnorm":

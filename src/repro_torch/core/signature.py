@@ -10,7 +10,11 @@ sort, data_movement, control, collective.
 * flops: ``torch.utils.flop_counter``'s formulas for the matrix products
   and convolutions, one per output element for elementwise and logic
   ops, ``max(input bytes / 4, outputs)`` for reductions (the reference's
-  rule); transcendentals count one per output element.
+  rule); transcendentals count one per output element.  A backward
+  convolution (``convolution_backward``) is conv, with the flop counter's
+  formula; pools and their backwards are reduce (the reference's
+  reduce-window and select-and-scatter); ``_fft_r2c`` stays other, the
+  class the reference gives ``fft``.
 * bytes: inputs plus outputs of every op that is not a view; views cost
   nothing and slices cost the slice, read and written
   (``_VIEW_OPS``/``_SLICE_OPS``); control ops (random draws,
@@ -49,8 +53,10 @@ from repro_torch.kernels.flash_attention import flops as _flash_flops
 
 _DOT = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "addmv", "mv", "dot",
         "vdot", "matmul"}
+# convolution_backward: a backward convolution (two products), flops by
+# torch.utils.flop_counter's formula as convolution's
 _CONV = {"convolution", "_convolution", "cudnn_convolution",
-         "convolution_overrideable"}
+         "convolution_overrideable", "convolution_backward"}
 _ELEMENTWISE = {
     "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "pow", "exp",
     "log", "tanh", "rsqrt", "sqrt", "neg", "abs", "sign", "eq", "ne", "lt",
@@ -59,6 +65,7 @@ _ELEMENTWISE = {
     "sigmoid", "cos", "sin", "atan2", "remainder", "fmod", "isfinite",
     "relu", "square", "reciprocal", "exp2", "log2", "erf", "masked_fill",
     "lerp", "addcmul", "addcdiv", "threshold", "hardtanh", "gelu", "silu",
+    "threshold_backward",  # relu's backward
 }
 _LOGIC = {
     "bitwise_xor", "bitwise_and", "bitwise_or", "bitwise_not",
@@ -71,6 +78,11 @@ _REDUCE = {
     "var", "std", "var_mean", "std_mean", "cumsum", "cumprod", "logsumexp",
     "_softmax", "_log_softmax", "linalg_vector_norm", "norm", "aminmax",
     "any", "all", "bincount", "count_nonzero", "row_moments",
+    # pooling: the reference's reduce-window and, backward,
+    # select-and-scatter
+    "max_pool2d_with_indices", "max_pool2d_with_indices_backward",
+    "avg_pool2d", "avg_pool2d_backward",
+    "_softmax_backward_data", "_log_softmax_backward_data",
 }
 _SORT = {"sort", "argsort", "topk", "msort", "kthvalue",
          "bitonic_sort_blocks"}
@@ -82,6 +94,8 @@ _DATA_MOVEMENT = {
     "ones_like", "full_like", "new_zeros", "new_ones", "new_full", "fill",
     "fill_", "zero_", "searchsorted", "embedding", "take", "take_along_dim",
     "masked_select", "tril", "triu", "slice", "select",
+    "scatter_reduce", "scatter_reduce_",  # segment_max
+    "slice_backward",  # a slice's backward: zeros with the slice copied in
 }
 # views alias their input: no bytes move (iota/arange is the reference's
 # zero-traffic iota)
@@ -99,7 +113,7 @@ _CONTROL = {
     "rand_like", "randn_like", "randint_like", "randperm", "multinomial",
     "exponential", "empty", "empty_like", "empty_strided", "new_empty",
     "lift_fresh", "lift_fresh_copy", "_local_scalar_dense", "resize_",
-    "set_", "record_stream",
+    "set_", "record_stream", "scalar_tensor",
 }
 _TRANSCENDENTAL = {
     "exp", "log", "tanh", "rsqrt", "sqrt", "pow", "sigmoid", "cos", "sin",

@@ -53,6 +53,20 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def gen_seed(gen: torch.Generator) -> torch.Tensor:
+    """A 0-d int32 seed drawn from ``gen``, on its device: the port's leaf
+    for a JAX PRNG key.  Like a key, it is never perturbed between weighted
+    repetitions (``_tree_perturb`` leaves int32 alone)."""
+    return torch.randint(0, 1 << 31, (), generator=gen, device=gen.device,
+                         dtype=torch.int32)
+
+
+def generator_from(seed: torch.Tensor) -> torch.Generator:
+    """The generator a :func:`gen_seed` leaf stands for (reading it waits
+    for its device)."""
+    return make_generator(int(seed), seed.device)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     dt = getattr(torch, name, None)
     if not isinstance(dt, torch.dtype):

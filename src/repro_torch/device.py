@@ -7,7 +7,8 @@ used only when a caller (the tests) passes ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -33,3 +34,20 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Run convolutions and f32 matrix products in full f32, whatever the
+    caller's global flags say (cuDNN takes TF32 by default, and
+    ``torch.set_float32_matmul_precision`` may allow it for products);
+    the reference's are full f32.  The flags are restored on exit."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.set_float32_matmul_precision(matmul)

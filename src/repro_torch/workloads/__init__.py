@@ -1,3 +1,11 @@
-"""The paper's workloads ported so far: K-means."""
+"""The paper's five real workloads (BigDataBench 4.0 selection, §III-A)."""
 from repro_torch.workloads.base import WORKLOADS, Workload  # noqa: F401
-from repro_torch.workloads import kmeans  # noqa: F401  (registers itself)
+
+# importing registers the five workloads
+from repro_torch.workloads import (  # noqa: F401
+    alexnet,
+    inception_v3,
+    kmeans,
+    pagerank,
+    terasort,
+)

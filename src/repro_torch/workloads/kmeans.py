@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.decompose import MotifHint
 from repro_torch.data.generators import DataSpec, gen_vectors
+from repro_torch.device import full_f32
 from repro_torch.workloads.base import Workload, register_workload
 
 DIM = 64
@@ -29,6 +30,7 @@ def make_inputs(gen: torch.Generator, scale: float = 1.0,
     return (x, centroids)
 
 
+@full_f32()  # the reference's products are full f32
 def step(x: torch.Tensor, centroids: torch.Tensor):
     # assign: euclidean distances through one matrix product (matrix motif)
     x2 = torch.sum(x * x, dim=-1, keepdim=True)

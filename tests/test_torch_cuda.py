@@ -283,3 +283,65 @@ def test_cuda_moe_dispatch_matches_plain(cuda_device, dtype):
     form = "wgmma" if dtype == "bfloat16" else "simt"
     assert tops.moe_dispatch.forms == {f: calls if f == form else 0
                                        for f in ("wgmma", "simt")}
+
+
+def _to(tree, device):
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["alexnet", "inception_v3"])
+def test_cuda_ai_steps_match_the_host_with_tf32_allowed(cuda_device, name):
+    """The AI steps on the card against the host's, at the smallest batch,
+    ``rtol=2e-4, atol=2e-5`` (``chip_smoke.py``'s ``AI_STEP_TOL``), with
+    TF32 allowed around the card's call, so that a step that took it is
+    caught.  Inception-V3 holds its average pool's backward, which
+    torch 2.11 gets wrong on the card for channels-last inputs."""
+    from repro_torch.workloads import WORKLOADS, inception_v3
+
+    scale = {"alexnet": 8 / 128, "inception_v3": 4 / 32}[name]
+    args = WORKLOADS[name].inputs(seed=0, scale=scale, device=cuda_device)
+    step = WORKLOADS[name].step
+    if name == "inception_v3":
+        params, images, labels, rng = args
+        keep = inception_v3.keep_mask(params, images, rng)
+        step, args = inception_v3.step_with_keep, (params, images, labels,
+                                                  keep)
+    conv, matmul = (torch.backends.cudnn.allow_tf32,
+                    torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        new, loss = step(*args)
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.set_float32_matmul_precision(matmul)
+    hnew, hloss = step(*_to(args, "cpu"))
+    torch.testing.assert_close(loss.cpu(), hloss, rtol=2e-4, atol=2e-5)
+    for k in new:
+        torch.testing.assert_close(new[k].cpu(), hnew[k], rtol=2e-4,
+                                   atol=2e-5, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,scale", [("terasort", 0.01),
+                                        ("pagerank", 0.02)])
+def test_cuda_big_data_steps_match_the_host(cuda_device, name, scale):
+    """TeraSort exact; PageRank's f32 sums in another order (atomics on
+    the card) at ``rtol=1e-3, atol=1e-9`` (``chip_smoke.py``'s
+    ``PAGERANK_TOL``), its in-degrees exact."""
+    from repro_torch.uint32 import bits
+    from repro_torch.workloads import WORKLOADS
+
+    args = WORKLOADS[name].inputs(seed=0, scale=scale, device=cuda_device)
+    got = WORKLOADS[name].step(*args)
+    want = WORKLOADS[name].step(*_to(args, "cpu"))
+    if name == "terasort":
+        for g, w in zip(got, want):
+            assert torch.equal(bits(g).cpu(), bits(w))
+        return
+    assert torch.equal(got[3].cpu(), want[3])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-9)

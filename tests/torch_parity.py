@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # the suite runs with several pytest-xdist workers on a few cores
 torch.set_num_threads(1)
@@ -77,6 +78,20 @@ def assert_trees_close(want, got, rtol: float, atol: float) -> None:
             np.testing.assert_allclose(w.astype(np.float64),
                                        g.astype(np.float64), rtol=rtol,
                                        atol=atol, err_msg=k)
+
+
+class KernelOps(TorchDispatchMode):
+    """Records the names of the ``repro_torch`` kernel ops a run calls
+    (their plain versions, on CPU tensors)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "repro_torch":
+            self.ops.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
 
 
 @pytest.fixture
