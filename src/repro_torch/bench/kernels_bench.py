@@ -31,14 +31,11 @@ Usage:  PYTHONPATH=src python -m repro_torch.bench.kernels_bench \\
 from __future__ import annotations
 
 import argparse
-import json
-import os
-import tempfile
-from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.bench._io import write_json
 from repro_torch.core.evaluator import BatchEvaluator
 from repro_torch.core.motifs import (
     SUBSTRATES,
@@ -190,21 +187,6 @@ def parity_check(motif_name: str, variant: str, p: PVector,
                        f"mismatch")
     emit(f"parity_{motif_name}_{variant}", 0.0, "FAIL" if bad else "ok")
     return bad
-
-
-def write_json(path: str, doc: Any) -> None:
-    """Write ``doc`` as JSON to ``path`` atomically (a temporary file in the
-    same directory, then a rename), creating parent dirs."""
-    target = Path(path)
-    target.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=target.parent, prefix=target.name + ".")
-    try:
-        with os.fdopen(fd, "w") as f:
-            json.dump(doc, f, indent=1, default=str)
-        os.replace(tmp, target)
-    except BaseException:
-        os.unlink(tmp)
-        raise
 
 
 def device_info(dev: torch.device) -> Dict[str, Any]:

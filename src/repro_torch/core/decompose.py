@@ -44,6 +44,11 @@ COLLECTIVE_TO_MOTIF: Mapping[str, Tuple[str, str]] = {
     "collective-broadcast": ("graph", "traversal"),
 }
 
+#: motifs whose sharded form emits any collective kind at all
+#: (``COLLECTIVE_TO_MOTIF`` read backwards); the elasticity priors resolve
+#: the "own motif" of the total ``coll_frac`` metric through it
+COLLECTIVE_MOTIFS = frozenset(m for m, _ in COLLECTIVE_TO_MOTIF.values())
+
 
 @dataclass(frozen=True)
 class MotifHint:
@@ -89,13 +94,28 @@ def collective_shares(sig: Signature) -> Dict[str, float]:
 def decompose(sig: Signature,
               hints: Optional[Sequence[MotifHint]] = None,
               base_p: Optional[PVector] = None,
-              name: str = "proxy") -> ProxyBenchmark:
+              name: str = "proxy",
+              telemetry=None) -> ProxyBenchmark:
     """Build the initial (untuned) proxy benchmark for a target signature.
 
     With hints: motif set/variants fixed by the hints, weights seeded from
     the matching op-class shares (hint.weight overrides).  Without hints:
-    one node per significant op class."""
+    one node per significant op class.  The work runs in a ``decompose``
+    span on ``telemetry`` (the process default when ``None``)."""
+    if telemetry is None:
+        # core modules import nothing of repro_torch.runtime at module level
+        from repro_torch.runtime.telemetry import get_default
+
+        telemetry = get_default()
     base_p = base_p or PVector()
+    with telemetry.span("decompose", name=name, hinted=bool(hints)) as sp:
+        pb = _decompose(sig, hints, base_p, name)
+        sp.set(nodes=len(pb.nodes))
+        return pb
+
+
+def _decompose(sig: Signature, hints: Optional[Sequence[MotifHint]],
+               base_p: PVector, name: str) -> ProxyBenchmark:
     shares = hlo_shares(sig)
     coll = collective_shares(sig)
 

@@ -9,11 +9,12 @@
 5. return the qualified :class:`ProxyBenchmark` + report (accuracy,
    speedup — the paper's Table VI / Fig. 4 quantities).
 
-The reference's ``mesh``, ``session`` and ``priors`` arguments have no
+The reference's ``mesh`` and ``compile_workers`` arguments have no
 counterpart in the port yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence
@@ -29,8 +30,9 @@ from repro_torch.core.accuracy import (
     normalized_vector,
 )
 from repro_torch.core.decompose import MotifHint, decompose
-from repro_torch.core.evaluator import BatchEvaluator
+from repro_torch.core.evaluator import BatchEvaluator, EvalSession, counter_delta
 from repro_torch.core.motifs.base import DEFAULT_EVAL_CACHE, SUBSTRATES, PVector
+from repro_torch.core.priors import PriorTable, elasticity_priors, seed_num_tasks
 from repro_torch.core.proxy_graph import ProxyBenchmark
 from repro_torch.core.signature import Signature, signature_of_call
 from repro_torch.core.tuner import DecisionTreeTuner, TuneResult
@@ -55,6 +57,8 @@ class ProxyReport:
     engine_stats: Mapping[str, int] = field(default_factory=dict)
     qualification_rate: float = 1.0
     device: str = ""
+    #: True when the tuner ran with an elasticity-prior table
+    prior_seeded: bool = False
 
     def summary(self) -> str:
         sp = f"{self.speedup:.0f}x" if self.speedup else "n/a"
@@ -65,18 +69,29 @@ class ProxyReport:
 
 
 def proxy_signature(pb: ProxyBenchmark, *, run: bool = True, seed: int = 0,
-                    iters: int = 5, device: DeviceLike = None) -> Signature:
-    """Signature of the whole proxy DAG in the eval form the evaluator
-    profiles, so it reproduces the engine's metrics."""
+                    iters: int = 5, form: str = "eval",
+                    device: DeviceLike = None) -> Signature:
+    """Signature of the whole proxy DAG.
+
+    ``form="eval"`` (default) profiles the eval form the evaluator
+    profiles, so it reproduces the engine's metrics.  ``form="static"``
+    is the fully baked program: equal outputs, but not equal metrics (the
+    lifted knobs' masks and multiplies run only in the eval form)."""
     dev = resolve_device(device)
-    return signature_of_call(pb.build_eval_fn(dev), seed,
-                             pb.lifted_values(dev), run=run, iters=iters)
+    if form == "eval":
+        return signature_of_call(pb.build_eval_fn(dev), seed,
+                                 pb.lifted_values(dev), run=run, iters=iters)
+    if form != "static":
+        raise ValueError(f"unknown form {form!r}; want 'eval' or 'static'")
+    return signature_of_call(pb.build_fn(dev), seed, run=run, iters=iters,
+                             device=dev)
 
 
 def proxy_metrics(pb: ProxyBenchmark, *, run: bool = True,
                   metrics: Optional[Sequence[str]] = None, seed: int = 0,
+                  form: str = "eval",
                   device: DeviceLike = None) -> Dict[str, float]:
-    sig = proxy_signature(pb, run=run, seed=seed, device=device)
+    sig = proxy_signature(pb, run=run, seed=seed, form=form, device=device)
     m = normalized_vector(sig, include_rates=run)
     if metrics is not None:
         m = {k: m.get(k, 0.0) for k in metrics}
@@ -123,7 +138,9 @@ def generate_proxy(
     target_signature: Optional[Signature] = None,
     seed: int = 0,
     evaluator: Optional[BatchEvaluator] = None,
+    session: Optional[EvalSession] = None,
     cache_capacity: int = DEFAULT_EVAL_CACHE,
+    priors: Any = None,
     substrate: Optional[str] = None,
     device: DeviceLike = None,
 ) -> tuple[ProxyBenchmark, ProxyReport]:
@@ -133,8 +150,26 @@ def generate_proxy(
     ``run=False`` tunes on profiled metrics only (no timing).
     ``substrate="hopper"`` lowers the sort/matrix/statistics hot loops
     onto the hand-written kernels for every candidate the tuner scores;
-    ``None``/``"torch"`` keeps the stock ATen forms."""
+    ``"torch"`` keeps the stock ATen forms; ``None`` inherits a session's
+    ``substrate``, else ``"torch"``.
+
+    ``session`` (an :class:`EvalSession`) shares one engine across several
+    calls: the paper-repro sweep warm-starts each workload from the
+    earlier ones' profiles, and the session records this call's traffic
+    under ``name``.  ``evaluator`` (mutually exclusive) shares a bare
+    engine with no per-workload accounting.  Either must run on
+    ``device`` with this call's ``run`` and ``seed``.
+
+    ``priors`` seeds the adjusting stage with analytic elasticities
+    (:mod:`repro_torch.core.priors`): ``True`` derives the table from the
+    decomposed proxy; a :class:`PriorTable` is used as-is; ``None``
+    inherits a session's ``priors`` flag, else runs the cold-start loop.
+    """
     dev = resolve_device(device)
+    if session is not None and evaluator is not None:
+        raise ValueError("pass either session or evaluator, not both")
+    if session is not None:
+        evaluator = session  # quacks like a BatchEvaluator
     if evaluator is not None:
         if evaluator.device != dev:
             raise ValueError(f"evaluator runs on {evaluator.device}, this "
@@ -144,6 +179,8 @@ def generate_proxy(
                 f"shared evaluator was built with run={evaluator.run}, "
                 f"seed={evaluator.seed}; this call wants run={run}, "
                 f"seed={seed}")
+    if substrate is None:
+        substrate = getattr(evaluator, "substrate", None)
     if substrate is not None and substrate not in SUBSTRATES:
         raise ValueError(
             f"unknown substrate {substrate!r}; choose from {SUBSTRATES}")
@@ -155,7 +192,10 @@ def generate_proxy(
     target = normalized_vector(target_signature, include_rates=run)
 
     # 2. decompose ------------------------------------------------------------
-    pb0 = decompose(target_signature, hints=hints, base_p=base_p, name=name)
+    # the span lands on the shared engine's hub; with none shared,
+    # decompose resolves the process default itself
+    pb0 = decompose(target_signature, hints=hints, base_p=base_p, name=name,
+                    telemetry=getattr(evaluator, "telemetry", None))
     if substrate is not None and substrate != "torch":
         pb0 = pb0.with_substrate(substrate)
 
@@ -167,14 +207,28 @@ def generate_proxy(
     if evaluator is None:
         evaluator = BatchEvaluator(run=run, seed=seed,
                                    capacity=cache_capacity, device=dev)
+    if priors is None:
+        priors = bool(getattr(evaluator, "priors", False))
+    prior_table: Optional[PriorTable] = None
+    if priors is True:
+        pb0 = seed_num_tasks(pb0, None)  # identity without a mesh
+        prior_table = elasticity_priors(pb0, metric_names)
+    elif priors:
+        prior_table = priors
     stats_before = evaluator.stats()
     saved_metrics = evaluator.metrics
     evaluator.metrics = list(metric_names)
+    scope = (session.workload(name) if session is not None
+             else contextlib.nullcontext())
     try:
-        tuner = DecisionTreeTuner(evaluator, target_sel, tol=tol,
-                                  max_iters=max_iters, seed=seed)
-        result: TuneResult = tuner.tune(pb0)
-        final_sig = evaluator.signature_of(result.proxy)
+        with scope:
+            tuner = DecisionTreeTuner(evaluator, target_sel, tol=tol,
+                                      max_iters=max_iters, seed=seed,
+                                      priors=prior_table)
+            result: TuneResult = tuner.tune(pb0)
+            # the final report reuses this workload's cached profiles, so
+            # it belongs inside the workload scope
+            final_sig = evaluator.signature_of(result.proxy)
     finally:
         evaluator.metrics = saved_metrics
 
@@ -199,12 +253,11 @@ def generate_proxy(
         target_metrics=target_sel,
         proxy_metrics={k: final_m.get(k, 0.0) for k in metric_names},
         trace=result.trace,
-        # this call's traffic ("entries" is a gauge, not a counter)
-        engine_stats={k: v - stats_before.get(k, 0)
-                      for k, v in evaluator.stats().items()
-                      if k != "entries"},
+        # this call's traffic, not the shared engine's lifetime
+        engine_stats=counter_delta(stats_before, evaluator.stats()),
         qualification_rate=result.qualification_rate,
         device=str(dev),
+        prior_seeded=result.prior_seeded,
     )
     qualified = dataclasses.replace(
         result.proxy,

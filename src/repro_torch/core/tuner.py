@@ -1,6 +1,6 @@
 """Decision-tree auto-tuning (paper §II-B3 Adjusting + §II-B4 Feedback);
-port of ``repro/core/tuner.py`` without the mesh quantize hook and the
-elasticity-prior table, which the port does not have yet.
+port of ``repro/core/tuner.py`` without the mesh quantize hook, which the
+port does not have yet.
 
 The paper's tool
 1. *Impact analysis*: perturb one parameter at a time, run the proxy, and
@@ -14,18 +14,31 @@ The paper's tool
 The CART is implemented from scratch in numpy: multi-output regression
 over features = log2 of the tunable P entries of every node, targets =
 the metric vector M, re-fit online as the loop observes new samples.
+
+Elasticity priors: a ``priors`` table (:func:`repro_torch.core.priors.
+elasticity_priors` over the decomposed proxy) gives the adjusting stage
+analytic per-(param, metric) slopes before anything is measured.  Params
+the prior covers skip their impact-analysis perturbations, and every
+observation of a prior-backed pair blends in through ``(c * prior +
+sum(observed)) / (c + n)`` instead of the flat 0.5/0.5 mix.
+``priors=None`` is the legacy loop, and an empty table is bit-identical
+to it.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Callable, Dict, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 
 from repro_torch.core.accuracy import compare, deviations
 from repro_torch.core.motifs.base import TUNABLE_BOUNDS, get_motif
 from repro_torch.core.proxy_graph import ProxyBenchmark
+
+if TYPE_CHECKING:  # annotation only: the tuner duck-types the table
+    from repro_torch.core.priors import PriorTable
 
 # ---------------------------------------------------------------------------
 # From-scratch CART (multi-output regression tree)
@@ -202,6 +215,8 @@ class TuneResult:
     evals: int = 0
     #: 1.0: without a quantize rule every candidate qualifies
     qualification_rate: float = 1.0
+    #: True when the run was seeded with an elasticity-prior table
+    prior_seeded: bool = False
 
 
 class DecisionTreeTuner:
@@ -210,9 +225,11 @@ class DecisionTreeTuner:
     def __init__(self, evaluate: EvalFn, target: Mapping[str, float],
                  tol: float = 0.15, max_iters: int = 24,
                  impact_factor: float = 2.0, seed: int = 0,
-                 batch_evaluate: Optional[BatchEvalFn] = None):
-        # `evaluate` may be a plain EvalFn or a BatchEvaluator (callable,
-        # with an `evaluate_batch` method that dedups shape classes)
+                 batch_evaluate: Optional[BatchEvalFn] = None,
+                 priors: Optional["PriorTable"] = None):
+        # `evaluate` may be a plain EvalFn or a BatchEvaluator / EvalSession
+        # (callable, with an `evaluate_batch` method that dedups shape
+        # classes)
         if batch_evaluate is None:
             batch_evaluate = getattr(evaluate, "evaluate_batch", None)
         self.evaluate = evaluate
@@ -221,6 +238,20 @@ class DecisionTreeTuner:
         self.tol = tol
         self.max_iters = max_iters
         self.impact_factor = impact_factor
+        # None = the observed-only loop; an EMPTY table must be
+        # bit-identical to None, so every prior branch below keys off an
+        # actual table entry
+        self.priors = priors
+        # tune.impact + tune.iteration spans land on the engine's hub
+        # (BatchEvaluator/EvalSession expose `.telemetry`), else on the
+        # process default
+        telemetry = getattr(evaluate, "telemetry", None)
+        if telemetry is None:
+            from repro_torch.runtime.telemetry import get_default
+
+            telemetry = get_default()
+        self.telemetry = telemetry
+        self._slope_obs: Dict[Tuple[str, str], Tuple[float, int]] = {}
         self.rng = np.random.default_rng(seed)
         self.samples_X: List[np.ndarray] = []
         self.samples_Y: List[np.ndarray] = []
@@ -248,10 +279,16 @@ class DecisionTreeTuner:
         """One-at-a-time perturbation -> signed log-log elasticities
         ``self.elasticity[(param_label, metric)]`` = d log(metric) /
         d log(param).  The base and every informative perturbation are
-        submitted as ONE candidate batch."""
+        submitted as ONE candidate batch.  Params a prior table covers
+        skip their perturbations (the analytic slope replaces the probe),
+        and measured slopes of prior-backed pairs blend in as
+        observations."""
         base_x = encode(pb, refs)
+        covered = self.priors.covered if self.priors is not None else ()
         cands: List[Tuple[int, ProxyBenchmark, float]] = []
         for i, ref in enumerate(refs):
+            if ref.label() in covered:
+                continue  # the analytic prior replaces this probe
             for factor in (self.impact_factor, 1.0 / self.impact_factor):
                 moved = apply_move(pb, ref, factor)
                 delta = encode(moved, refs) - base_x
@@ -262,31 +299,54 @@ class DecisionTreeTuner:
                     continue  # other features moved: no single-param slope
                 cands.append((i, moved, dx))
 
-        measured = self._eval_batch([pb] + [c[1] for c in cands])
-        base_m = measured[0]
-        self._base_m = base_m
-        self._record(base_x, base_m)
-        base_v = self._mvec(base_m)
-        importance: Dict[str, float] = {}
-        self.elasticity: Dict[Tuple[str, str], float] = {}
-        slopes_by_ref: Dict[int, List[np.ndarray]] = {}
-        for (i, moved, dx), m in zip(cands, measured[1:]):
-            self._record(encode(moved, refs), m)
-            mv = self._mvec(m)
-            dlog = (np.log(np.abs(mv) + 1e-12)
-                    - np.log(np.abs(base_v) + 1e-12))
-            slopes_by_ref.setdefault(i, []).append(dlog / dx)
-            delta = np.abs(mv - base_v)
-            denom = np.abs(base_v) + 1e-9
-            importance[refs[i].label()] = max(
-                importance.get(refs[i].label(), 0.0),
-                float((delta / denom).max()))
-        for i, slopes in slopes_by_ref.items():
-            slope = np.mean(slopes, axis=0)
-            for j, metric in enumerate(self.metric_names):
-                self.elasticity[(refs[i].label(), metric)] = float(slope[j])
-        self._refit()
-        return importance
+        with self.telemetry.span("tune.impact", candidates=len(cands) + 1,
+                                 params=len(refs),
+                                 skipped_by_prior=len(covered)):
+            measured = self._eval_batch([pb] + [c[1] for c in cands])
+            base_m = measured[0]
+            self._base_m = base_m
+            self._record(base_x, base_m)
+            base_v = self._mvec(base_m)
+            importance: Dict[str, float] = {}
+            self.elasticity: Dict[Tuple[str, str], float] = {}
+            if self.priors is not None:
+                # with zero observations the blend is the prior itself
+                self.elasticity.update(
+                    {k: float(v) for k, v in self.priors.slopes.items()})
+            slopes_by_ref: Dict[int, List[np.ndarray]] = {}
+            for (i, moved, dx), m in zip(cands, measured[1:]):
+                self._record(encode(moved, refs), m)
+                mv = self._mvec(m)
+                dlog = (np.log(np.abs(mv) + 1e-12)
+                        - np.log(np.abs(base_v) + 1e-12))
+                slopes_by_ref.setdefault(i, []).append(dlog / dx)
+                delta = np.abs(mv - base_v)
+                denom = np.abs(base_v) + 1e-9
+                importance[refs[i].label()] = max(
+                    importance.get(refs[i].label(), 0.0),
+                    float((delta / denom).max()))
+            for i, slopes in slopes_by_ref.items():
+                slope = np.mean(slopes, axis=0)
+                for j, metric in enumerate(self.metric_names):
+                    key = (refs[i].label(), metric)
+                    if self.priors is not None and key in self.priors.slopes:
+                        for s in slopes:
+                            self._observe(key, float(s[j]))
+                    else:
+                        self.elasticity[key] = float(slope[j])
+            self._refit()
+            return importance
+
+    def _observe(self, key: Tuple[str, str], slope: float) -> None:
+        """Prior-weighted online update for one (param, metric) slope:
+        ``(c * prior + sum(observed)) / (c + n)``.  Only reached for keys
+        the prior table holds."""
+        prior = self.priors.slopes[key]
+        c = self.priors.confidence
+        s, n = self._slope_obs.get(key, (0.0, 0))
+        s, n = s + slope, n + 1
+        self._slope_obs[key] = (s, n)
+        self.elasticity[key] = (c * float(prior) + s) / (c + n)
 
     def _record(self, x: np.ndarray, m: Mapping[str, float]) -> None:
         self.samples_X.append(x)
@@ -362,8 +422,11 @@ class DecisionTreeTuner:
                 - np.log(np.abs(bv) + 1e-12)) / dx
         for j, metric in enumerate(self.metric_names):
             key = (moved_label, metric)
-            old = self.elasticity.get(key, 0.0)
-            self.elasticity[key] = 0.5 * old + 0.5 * float(dlog[j])
+            if self.priors is not None and key in self.priors.slopes:
+                self._observe(key, float(dlog[j]))
+            else:
+                old = self.elasticity.get(key, 0.0)
+                self.elasticity[key] = 0.5 * old + 0.5 * float(dlog[j])
         return True
 
     @staticmethod
@@ -391,66 +454,78 @@ class DecisionTreeTuner:
             worst = devs[worst_metric]
             if worst <= self.tol:
                 break
-            cur_score = self._score(devs)
-            set_this_iter: set = set()
+            # one adjust->feedback move per span; the tolerance check
+            # stays outside so a converged loop traces no phantom iteration
+            with self.telemetry.span("tune.iteration", iteration=it,
+                                     worst_metric=worst_metric,
+                                     worst_dev=float(worst)) as sp:
+                cur_score = self._score(devs)
+                set_this_iter: set = set()
 
-            # decision-tree stage: rank parameters by |elasticity| for the
-            # deviating metric; Newton-step the best non-blacklisted one
-            ranked = sorted(
-                by_label,
-                key=lambda lbl: -abs(self.elasticity.get(
-                    (lbl, worst_metric), 0.0)))
-            cand = None
-            moved_label, moved_factor, moved_idx = "", 1.0, -1
-            for lbl in ranked:
-                if blacklist.get((lbl, worst_metric), 0) > 0:
-                    continue
-                i, ref = by_label[lbl]
-                f = self._newton_factor(lbl, worst_metric,
-                                        cur_m.get(worst_metric, 0.0),
-                                        self.target[worst_metric])
-                if f is None:
-                    continue
-                attempt = apply_move(cur, ref, f)
-                if np.array_equal(encode(attempt, refs), encode(cur, refs)):
-                    continue  # clamped at bound (or rounded back)
-                # CART veto: skip moves the surrogate predicts harmful
-                if (len(self.samples_X) >= 8
-                        and self._predict_score(attempt, refs)
-                        > cur_score * 1.5):
-                    blacklist[(lbl, worst_metric)] = 2
-                    set_this_iter.add((lbl, worst_metric))
-                    continue
-                cand, moved_label, moved_factor, moved_idx = (
-                    attempt, lbl, f, i)
-                break
-            if cand is None:
-                explored = self._explore(cur, refs)
-                if explored is None:
-                    break  # every move is a no-op
-                cand, moved_label, moved_factor, moved_idx = explored
+                # decision-tree stage: rank parameters by |elasticity| for
+                # the deviating metric; Newton-step the best
+                # non-blacklisted one
+                ranked = sorted(
+                    by_label,
+                    key=lambda lbl: -abs(self.elasticity.get(
+                        (lbl, worst_metric), 0.0)))
+                cand = None
+                moved_label, moved_factor, moved_idx = "", 1.0, -1
+                for lbl in ranked:
+                    if blacklist.get((lbl, worst_metric), 0) > 0:
+                        continue
+                    i, ref = by_label[lbl]
+                    f = self._newton_factor(lbl, worst_metric,
+                                            cur_m.get(worst_metric, 0.0),
+                                            self.target[worst_metric])
+                    if f is None:
+                        continue
+                    attempt = apply_move(cur, ref, f)
+                    if np.array_equal(encode(attempt, refs),
+                                      encode(cur, refs)):
+                        continue  # clamped at bound (or rounded back)
+                    # CART veto: skip moves the surrogate predicts harmful
+                    if (len(self.samples_X) >= 8
+                            and self._predict_score(attempt, refs)
+                            > cur_score * 1.5):
+                        blacklist[(lbl, worst_metric)] = 2
+                        set_this_iter.add((lbl, worst_metric))
+                        continue
+                    cand, moved_label, moved_factor, moved_idx = (
+                        attempt, lbl, f, i)
+                    break
+                if cand is None:
+                    explored = self._explore(cur, refs)
+                    if explored is None:
+                        sp.set(exhausted=True)
+                        break  # every move is a no-op
+                    cand, moved_label, moved_factor, moved_idx = explored
+                    sp.set(explored=True)
 
-            cand_m = self._eval(cand)
-            self._record(encode(cand, refs), cand_m)
-            self._refit()
-            self._online_update(refs, cur, cand, cur_m, cand_m,
-                                moved_label, moved_idx)
+                cand_m = self._eval(cand)
+                self._record(encode(cand, refs), cand_m)
+                self._refit()
+                self._online_update(refs, cur, cand, cur_m, cand_m,
+                                    moved_label, moved_idx)
 
-            cand_devs = deviations(self.target, cand_m, self.metric_names)
-            accepted = self._score(cand_devs) < cur_score
-            trace.append(TuneTrace(
-                iteration=it, moved=moved_label, factor=moved_factor,
-                worst_metric=worst_metric, worst_dev_before=worst,
-                worst_dev_after=max(cand_devs.values()),
-                mean_acc=compare(self.target, cand_m,
-                                 self.metric_names).mean,
-                accepted=accepted))
-            if accepted:
-                cur, cur_m = cand, cand_m
-            else:
-                blacklist[(moved_label, worst_metric)] = 2
-                set_this_iter.add((moved_label, worst_metric))
-            blacklist = self._expire_cooldowns(blacklist, set_this_iter)
+                cand_devs = deviations(self.target, cand_m,
+                                       self.metric_names)
+                accepted = self._score(cand_devs) < cur_score
+                sp.set(moved=moved_label, factor=float(moved_factor),
+                       accepted=accepted)
+                trace.append(TuneTrace(
+                    iteration=it, moved=moved_label, factor=moved_factor,
+                    worst_metric=worst_metric, worst_dev_before=worst,
+                    worst_dev_after=max(cand_devs.values()),
+                    mean_acc=compare(self.target, cand_m,
+                                     self.metric_names).mean,
+                    accepted=accepted))
+                if accepted:
+                    cur, cur_m = cand, cand_m
+                else:
+                    blacklist[(moved_label, worst_metric)] = 2
+                    set_this_iter.add((moved_label, worst_metric))
+                blacklist = self._expire_cooldowns(blacklist, set_this_iter)
 
         final_devs = deviations(self.target, cur_m, self.metric_names)
         rep = compare(self.target, cur_m, self.metric_names)
@@ -463,4 +538,7 @@ class DecisionTreeTuner:
             trace=trace,
             tree_depth=self.tree.depth(),
             evals=self.evals,
+            prior_seeded=bool(self.priors is not None
+                              and (self.priors.slopes
+                                   or self.priors.covered)),
         )

@@ -116,6 +116,11 @@ def test_the_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    # the session layer's modules are among those scanned
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "runtime/__init__", "runtime/telemetry", "core/store", "core/priors",
+        "core/evaluator", "bench/paper_repro", "bench/_io")} <= scanned
     bad = [f"{f.relative_to(ROOT)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]
