@@ -63,6 +63,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    key of the reference benchmark's; then a fresh session on the same store
    replays every tuned proxy, which must take 0 compiles, one store hit
    a distinct key, and give the sweep's metrics bit for bit;
+6d. serve (needs paper_repro): the proxy server, counters zeroed just
+   before and read after the last server's shutdown.  First the port's
+   ``serve_bench --check`` at the reference's defaults (8 shape classes,
+   4 clients x 12 requests, 1 tune, open loop at 4 and 16 req/s) with
+   ``--substrate hopper``, a store (its warm-start probe a child process
+   on the card that must profile nothing) and a trace that
+   ``trace_summary --check`` must pass; then a ``ProxyServer`` over a
+   hopper ``EvalSession`` on phase 6c's store: a tune of K-means at
+   phase 3's size, then 4 closed-loop clients x 12 requests over the
+   sweep's five proxies and the one just tuned.  Fails if an evaluate
+   differs by a bit from a serial session's, a sweep proxy was profiled
+   rather than read from the store, the server counted an error, or
+   matmul, row moments or bitonic sort never launched;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -75,8 +88,9 @@ The last lines are the kernel table as JSON (all six kernels: the first
 three with their launches over phase 3 and their phase-5 times, the other
 three with their launches over phase 7 and their full-width phase-2
 times, each with its device ms, and each with its launches over every
-workload of phase 6b and its times at those workloads' shapes, and its
-launches over each workload of phase 6c), the
+workload of phase 6b and its times at those workloads' shapes, its
+launches over each workload of phase 6c, and its launches over phase 6d
+as ``serve_launches``), the
 card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: the script
 exits non-zero without a CUDA device, and outside a checkout.
@@ -87,6 +101,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1054,81 +1069,215 @@ def phase_workloads(torch, dev) -> tuple:
     return launches, rows
 
 
-def phase_paper_repro(torch, dev) -> dict:
+def phase_paper_repro(torch, dev, store_dir: str) -> tuple:
     """The port's paper-reproduction sweep (``repro_torch.bench.
     paper_repro``) as its command line runs it: every workload from its
     ``BASE_P`` at ``PAPER_SCALE`` and ``PAPER_ITERS`` through one
     ``EvalSession`` on the kernels (``substrate="hopper"``) backed by a
-    ``ProxyStore`` in a temporary directory, every launch counter zeroed
-    just before.  Fails if a kernel of a workload's path never launched,
-    the per-workload compiles do not sum to the session's, or the
-    document lacks a key of the reference benchmark's.  Then a fresh session
-    on the same store replays each tuned proxy: it must profile nothing,
-    hit the store once for each distinct key, and give the sweep's
-    metrics bit for bit.  Returns ``{workload: launches over its
-    run}``."""
-    import tempfile
-
+    ``ProxyStore`` in ``store_dir``, every launch counter zeroed just
+    before.  Fails if a kernel of a workload's path never launched, the
+    per-workload compiles do not sum to the session's, or the document
+    lacks a key of the reference benchmark's.  Then a fresh session on the
+    same store replays each tuned proxy: it must profile nothing, hit the
+    store once for each distinct key, and give the sweep's metrics bit for
+    bit.  Returns ``{workload: launches over its run}`` and ``{workload:
+    tuned proxy}`` (the serve phase serves them from the store)."""
     from repro_torch.bench import paper_repro
     from repro_torch.core import EvalSession, ProxyStore, normalized_vector
     from repro_torch.kernels import ops
     from repro_torch.workloads import WORKLOADS
 
     launches, proxies, records = {}, {}, []
-    with tempfile.TemporaryDirectory() as store_dir:
-        session = EvalSession(run=True, seed=0, substrate="hopper",
-                              device=dev, store=ProxyStore(store_dir))
+    session = EvalSession(run=True, seed=0, substrate="hopper",
+                          device=dev, store=ProxyStore(store_dir))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    before = ops.launch_counts()
+    t_sweep = time.perf_counter()
+    for name in sorted(WORKLOADS):
+        pb, rep, wall = paper_repro.run_one(
+            name, PAPER_SCALE, PAPER_ITERS, session=session, device=dev)
         torch.cuda.synchronize()
-        ops.reset_launches()
-        before = ops.launch_counts()
-        t_sweep = time.perf_counter()
-        for name in sorted(WORKLOADS):
-            pb, rep, wall = paper_repro.run_one(
-                name, PAPER_SCALE, PAPER_ITERS, session=session, device=dev)
-            torch.cuda.synchronize()
-            after = ops.launch_counts()
-            launches[name] = {k: after[k] - before[k] for k in after}
-            before = after
-            check_report(name, pb, rep, wall, launches[name],
-                         f"paper_repro's {name}")
-            proxies[name] = pb
-            records.append(paper_repro.record(name, PAPER_SCALE, pb, rep,
-                                              wall))
-        doc = {"workloads": records, "session": paper_repro.session_doc(
-            session, time.perf_counter() - t_sweep)}
-        missing = paper_repro.missing_keys(doc)
-        if missing:
-            raise fail(f"the paper_repro document lacks {missing}")
-        stats = session.stats()
-        log(f"paper_repro session: {json.dumps(stats)}")
-        log(f"  cross_workload_hits={session.cross_workload_hits}")
-        for name, delta in session.workload_stats.items():
-            log(f"  workload_stats {name}: {json.dumps(delta)}")
-        summed = sum(d["compiles"] for d in session.workload_stats.values())
-        if summed != stats["compiles"]:
-            raise fail(f"per-workload compiles sum to {summed}, the "
-                       f"session's are {stats['compiles']}")
-        log(f"  sweep: {doc['session']['total_tuning_wall_s']:.1f} s; " +
-            "; ".join(f"{r['workload']} qualified={r['qualified']} "
-                      f"mean={r['mean_accuracy']:.4f} "
-                      f"speedup={r['speedup']}" for r in records))
+        after = ops.launch_counts()
+        launches[name] = {k: after[k] - before[k] for k in after}
+        before = after
+        check_report(name, pb, rep, wall, launches[name],
+                     f"paper_repro's {name}")
+        proxies[name] = pb
+        records.append(paper_repro.record(name, PAPER_SCALE, pb, rep,
+                                          wall))
+    doc = {"workloads": records, "session": paper_repro.session_doc(
+        session, time.perf_counter() - t_sweep)}
+    missing = paper_repro.missing_keys(doc)
+    if missing:
+        raise fail(f"the paper_repro document lacks {missing}")
+    stats = session.stats()
+    log(f"paper_repro session: {json.dumps(stats)}")
+    log(f"  cross_workload_hits={session.cross_workload_hits}")
+    for name, delta in session.workload_stats.items():
+        log(f"  workload_stats {name}: {json.dumps(delta)}")
+    summed = sum(d["compiles"] for d in session.workload_stats.values())
+    if summed != stats["compiles"]:
+        raise fail(f"per-workload compiles sum to {summed}, the "
+                   f"session's are {stats['compiles']}")
+    log(f"  sweep: {doc['session']['total_tuning_wall_s']:.1f} s; " +
+        "; ".join(f"{r['workload']} qualified={r['qualified']} "
+                  f"mean={r['mean_accuracy']:.4f} "
+                  f"speedup={r['speedup']}" for r in records))
 
-        replay = EvalSession(run=True, seed=0, substrate="hopper",
-                             device=dev, store=ProxyStore(store_dir))
-        for name, pb in proxies.items():
-            want = normalized_vector(session.signature_of(pb),
-                                     include_rates=True)
-            if replay.evaluate(pb) != want:
-                raise fail(f"store replay of {name}'s proxy: metrics differ "
-                           f"from the sweep's")
-        got = replay.stats()
-        distinct = len({replay.cache.key_for(pb) for pb in proxies.values()})
-        log(f"store replay: {json.dumps(got)} ({distinct} distinct keys)")
-        if got["compiles"] != 0 or got["store_hits"] != distinct:
-            raise fail(f"store replay made {got['compiles']} compiles and "
-                       f"{got['store_hits']} store hits for {distinct} "
-                       f"distinct keys (want 0 and {distinct})")
-    return launches
+    replay = EvalSession(run=True, seed=0, substrate="hopper",
+                         device=dev, store=ProxyStore(store_dir))
+    for name, pb in proxies.items():
+        want = normalized_vector(session.signature_of(pb),
+                                 include_rates=True)
+        if replay.evaluate(pb) != want:
+            raise fail(f"store replay of {name}'s proxy: metrics differ "
+                       f"from the sweep's")
+    got = replay.stats()
+    distinct = len({replay.cache.key_for(pb) for pb in proxies.values()})
+    log(f"store replay: {json.dumps(got)} ({distinct} distinct keys)")
+    if got["compiles"] != 0 or got["store_hits"] != distinct:
+        raise fail(f"store replay made {got['compiles']} compiles and "
+                   f"{got['store_hits']} store hits for {distinct} "
+                   f"distinct keys (want 0 and {distinct})")
+    return launches, proxies
+
+
+def _class_rows(metrics: dict) -> str:
+    """A server's per-class count, P50/P95/P99, TTFR and its batches."""
+    rows = [f"{c} n={r['count']} p50={r['p50_s']:.6f} p95={r['p95_s']:.6f} "
+            f"p99={r['p99_s']:.6f} ttfr={r['ttfr_s']} s"
+            for c, r in metrics["classes"].items()]
+    return "; ".join(rows) + f"; batches {json.dumps(metrics['batches'])}"
+
+
+def phase_serve(torch, dev, work: Path, proxies: dict) -> dict:
+    """The serving path, every launch counter zeroed just before and read
+    after the last server's shutdown.
+
+    (a) ``repro_torch.bench.serve_bench --check`` in-process at the
+    reference's defaults (8 shape classes, 4 clients x 12 requests, 1
+    tune, open loop at 4 and 16 req/s) on the kernels, with a store (its
+    warm-start probe is a child process on the card) and a trace, then
+    ``repro_torch.bench.trace_summary --check`` on the trace.
+
+    (b) a ``ProxyServer`` over a ``run=True`` hopper ``EvalSession`` on
+    the sweep's store: one tune of K-means at phase 3's size (``SCALE``,
+    ``MAX_ITERS``; the points built before the submit), then 4 closed-loop
+    clients x 12 requests (every fifth a signature) over the sweep's
+    ``proxies`` and the K-means proxy just tuned.  Fails if an evaluate
+    differs by a bit from a serial session's on the same store, a sweep
+    proxy was profiled rather than read from the store, the server
+    counted an error, or matmul, row moments or bitonic sort never
+    launched over the phase.  Returns the launches over the phase."""
+    from repro_torch.bench import serve_bench, trace_summary
+    from repro_torch.core import EvalSession, ProxyStore
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ProxyServer
+    from repro_torch.workloads import WORKLOADS
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+
+    # (a) the reference's bench, uncut ------------------------------------
+    bench_dir = work / "serve_bench"
+    out, trace = work / "serve_bench.json", bench_dir / "trace.json"
+    rc = serve_bench.main(["--check", "--store", str(bench_dir), "--trace",
+                           str(trace), "--device", "cuda", "--substrate",
+                           "hopper", "--out", str(out)])
+    if rc != 0:
+        raise fail(f"serve_bench --check returned {rc}")
+    doc = json.loads(out.read_text())
+    missing = serve_bench.missing_keys(doc)
+    if missing:
+        raise fail(f"the serve_bench document lacks {missing}")
+    warm = doc["warm"]
+    log(f"serve_bench cold: {doc['cold']['wall_s']:.3f} s, "
+        f"{json.dumps(doc['cold']['batches'])}")
+    log(f"serve_bench warm: {warm['wall_s']:.3f} s, "
+        f"{warm['throughput_rps']:.1f} req/s, errors {warm['errors']}; "
+        + _class_rows(warm))
+    log(f"serve_bench tune: {json.dumps(doc['tune'])}")
+    for row in doc["open_loop"]:
+        log(f"serve_bench open loop {row['rate_rps']:g} req/s: achieved "
+            f"{row['achieved_rps']:.2f}, n={row['count']} "
+            f"p50={row['p50_s']:.6f} p95={row['p95_s']:.6f} "
+            f"p99={row['p99_s']:.6f} ttfr={row['ttfr_s']} s, batches "
+            f"{json.dumps(row['batches'])}")
+    log(f"serve_bench trace: {json.dumps(doc['trace'])}")
+    log(f"serve_bench parity {json.dumps(doc['parity'])}, probe "
+        f"{json.dumps(doc['warm_start_probe'])}, engine "
+        f"{json.dumps(doc['engine'])}")
+    rc = trace_summary.main([str(trace), "--check", "--top", "5"])
+    if rc != 0:
+        raise fail(f"trace_summary --check returned {rc}")
+    torch.cuda.synchronize()
+    bench_counts = ops.launch_counts()
+    log(f"launches over serve_bench: {json.dumps(bench_counts)}")
+
+    # (b) full-width traffic on the sweep's store --------------------------
+    w = WORKLOADS["kmeans"]
+    args = w.inputs(seed=0, scale=SCALE, device=dev)
+    torch.cuda.synchronize()
+    store_dir = str(work / "sweep_store")
+    session = EvalSession(run=True, seed=0, substrate="hopper", device=dev,
+                          store=ProxyStore(store_dir))
+    with ProxyServer(session) as server:
+        t0 = time.perf_counter()
+        pb, rep = server.submit_tune(w.step, *args, name="kmeans",
+                                     hints=w.hints,
+                                     max_iters=MAX_ITERS).result()
+        tune_s = time.perf_counter() - t0
+    tuned = server.metrics()
+    after_tune = ops.launch_counts()
+    check_report("kmeans", pb, rep, tune_s,
+                 {k: after_tune[k] - bench_counts[k] for k in after_tune},
+                 "the served K-means tune")
+    log(f"served tune: {_class_rows(tuned)}")
+
+    served = dict(proxies, kmeans_served=pb)
+    names, pool = list(served), list(served.values())
+    before = session.stats()
+    with ProxyServer(session) as server:
+        t0 = time.perf_counter()
+        results = serve_bench.closed_loop(server, pool, clients=4,
+                                          per_client=12)
+        wall = time.perf_counter() - t0
+    m = server.metrics()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    delta = {k: v - before.get(k, 0) for k, v in session.stats().items()}
+    log(f"served traffic: {48 / wall:.1f} req/s over {wall:.3f} s; "
+        + _class_rows(m))
+    log(f"  engine {json.dumps(m['engine'])}; over the traffic "
+        f"{json.dumps(delta)}")
+    serial = EvalSession(run=True, seed=0, substrate="hopper", device=dev,
+                         store=ProxyStore(store_dir))
+    want = [serial.evaluate(p) for p in pool]
+    bad = [names[i] for i, got in results if got != want[i]]
+    profiled = [n for n, p in proxies.items()
+                if session.cache._entries[session.cache.key_for(p)].fn
+                is not None]
+    log(f"  {len(results)} evaluates against the serial session "
+        f"({json.dumps(serial.stats())}): {len(bad)} differ")
+    log(f"launches over the serve phase: {json.dumps(counts)}")
+    if bad:
+        raise fail(f"served evaluates differ from the serial session's: "
+                   f"{sorted(set(bad))}")
+    if profiled or delta["compiles"] != 0:
+        raise fail(f"sweep proxies profiled rather than read from the "
+                   f"store: {profiled}; {delta['compiles']} profiles over "
+                   f"the traffic")
+    if tuned["errors"] or m["errors"]:
+        raise fail(f"the server counted {tuned['errors'] + m['errors']} "
+                   f"errors")
+    if len(results) != 40 or m["requests"] != 48:
+        raise fail(f"{m['requests']} requests served, {len(results)} "
+                   f"evaluates (want 48 and 40)")
+    missing = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
+    if missing:
+        raise fail(f"kernels never launched in the serve phase: {missing}")
+    return counts
 
 
 class _Recorder:
@@ -1325,16 +1474,21 @@ def phase_trace(torch, dev, name: str, fn) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,kernels,main,workloads,paper_repro,bench",
+                    default="env,kernels,main,workloads,paper_repro,serve,"
+                            "bench",
                     help="comma list of env, kernels, main (main includes "
                          "the checks and main-path shapes), workloads (the "
                          "other four workloads), paper_repro (the sweep of "
-                         "all five from BASE_P), bench (needs kernels)")
+                         "all five from BASE_P), serve (the proxy server; "
+                         "needs paper_repro), bench (needs kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     if "bench" in phases and "kernels" not in phases:
         ap.error("the bench phase reports the kernels phase's full-width "
                  "times: add kernels")
+    if "serve" in phases and "paper_repro" not in phases:
+        ap.error("the serve phase serves the paper_repro phase's proxies "
+                 "from its store: add paper_repro")
 
     import torch
 
@@ -1367,9 +1521,16 @@ def main(argv=None) -> int:
     launches, path_rows = {}, []
     if "workloads" in phases:
         launches, path_rows = timed("workloads", phase_workloads, torch, dev)
-    paper_launches = {}
-    if "paper_repro" in phases:
-        paper_launches = timed("paper_repro", phase_paper_repro, torch, dev)
+    paper_launches, serve_launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        work = Path(work)
+        if "paper_repro" in phases:
+            paper_launches, proxies = timed(
+                "paper_repro", phase_paper_repro, torch, dev,
+                str(work / "sweep_store"))
+        if "serve" in phases:
+            serve_launches = timed("serve", phase_serve, torch, dev, work,
+                                   proxies)
     if "bench" in phases:
         entries += timed("bench", phase_bench, torch, dev, kernel_rows)
     for e in entries:  # the other workloads' paths, beside the main one
@@ -1377,6 +1538,7 @@ def main(argv=None) -> int:
                                   for w, c in launches.items()}
         e["paper_repro_launches"] = {w: c[e["name"]]
                                      for w, c in paper_launches.items()}
+        e["serve_launches"] = serve_launches.get(e["name"])
         e["workload_shapes"] = [
             {k: r[k] for k in ("workload", "shape", "dtype", "max_abs_err",
                                "ms", "device_ms", "plain_ms", "bound_ms",

@@ -1,5 +1,12 @@
-"""Runtime layers of the port.  Only telemetry so far; the proxy server
-(``repro/runtime/proxy_server.py``) is not ported yet."""
+"""Runtime layers of the port: the proxy server and telemetry."""
+from repro_torch.runtime.proxy_server import (  # noqa: F401
+    PERCENTILES,
+    REQUEST_CLASSES,
+    LatencyRecorder,
+    ProxyServer,
+    ServerClosed,
+    percentile,
+)
 from repro_torch.runtime.telemetry import (  # noqa: F401
     EVENT_KINDS,
     METRIC_KINDS,

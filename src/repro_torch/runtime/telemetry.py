@@ -284,21 +284,9 @@ assert tuple(_METRIC_CLASSES) == METRIC_KINDS
 # ---------------------------------------------------------------------------
 
 
-class _SpanRecord:
-    """One finished span/event as it sits in the ring buffer."""
-
-    __slots__ = ("name", "t0", "t1", "tid", "span_id", "parent_id",
-                 "attrs", "ph")
-
-    def __init__(self, name, t0, t1, tid, span_id, parent_id, attrs, ph):
-        self.name = name
-        self.t0 = t0
-        self.t1 = t1
-        self.tid = tid
-        self.span_id = span_id
-        self.parent_id = parent_id
-        self.attrs = attrs
-        self.ph = ph
+# A finished span or event sits in the ring buffer as a plain tuple, the
+# cheapest record to build on the emitting thread: (name, t0, t1, tid,
+# span_id, parent_id, attrs, ph).
 
 
 class SpanHandle:
@@ -339,9 +327,8 @@ class SpanHandle:
             stack.pop()
         if exc_type is not None:
             self.attrs.setdefault("error", exc_type.__name__)
-        self.hub._commit(_SpanRecord(
-            self.name, self.t0, t1, threading.get_ident(), self.span_id,
-            self.parent_id, self.attrs, "X"))
+        self.hub._commit((self.name, self.t0, t1, threading.get_ident(),
+                          self.span_id, self.parent_id, self.attrs, "X"))
         return False
 
 
@@ -359,7 +346,7 @@ class Telemetry:
     def __init__(self, span_capacity: int = DEFAULT_SPAN_CAPACITY,
                  hist_samples: int = DEFAULT_HIST_SAMPLES):
         self._lock = threading.Lock()
-        self._records: "deque[_SpanRecord]" = deque(
+        self._records: "deque[tuple]" = deque(
             maxlen=max(1, int(span_capacity)))
         self._committed = 0
         self._ids = itertools.count(1)
@@ -382,10 +369,11 @@ class Telemetry:
             stack = self._tls.stack = []
         return stack
 
-    def _commit(self, rec: _SpanRecord) -> None:
+    def _commit(self, rec: tuple) -> None:
+        tid = rec[3]
         with self._lock:
-            if rec.tid not in self._thread_names:
-                self._thread_names[rec.tid] = threading.current_thread().name
+            if tid not in self._thread_names:
+                self._thread_names[tid] = threading.current_thread().name
             self._records.append(rec)
             self._committed += 1
 
@@ -406,19 +394,17 @@ class Telemetry:
         timestamps; returns its span id (usable as ``parent`` for
         children).  This is the cross-thread path: the recording thread
         need not be the one the time was spent on."""
-        sid = self._new_id()
-        self._commit(_SpanRecord(name, float(t0), float(t1),
-                                 threading.get_ident(), sid, parent,
-                                 attrs, "X"))
+        sid = next(self._ids)
+        self._commit((name, float(t0), float(t1), threading.get_ident(), sid,
+                      parent, attrs, "X"))
         return sid
 
     def event(self, name: str, /, **attrs) -> None:
         """A zero-duration instant mark (cache hits, invalidations)."""
         t = time.perf_counter()
-        stack = self._stack()
-        self._commit(_SpanRecord(name, t, t, threading.get_ident(),
-                                 self._new_id(),
-                                 stack[-1] if stack else None, attrs, "i"))
+        stack = getattr(self._tls, "stack", None)
+        self._commit((name, t, t, threading.get_ident(), next(self._ids),
+                      stack[-1] if stack else None, attrs, "i"))
 
     # -- the metrics registry ------------------------------------------------
     def _metric(self, name: str, kind: str):
@@ -470,13 +456,13 @@ class Telemetry:
             dropped = self._committed - len(self._records)
         spans: Dict[str, Dict[str, float]] = {}
         events: Dict[str, int] = {}
-        for r in records:
-            if r.ph == "i":
-                events[r.name] = events.get(r.name, 0) + 1
+        for name, t0, t1, _, _, _, _, ph in records:
+            if ph == "i":
+                events[name] = events.get(name, 0) + 1
                 continue
-            agg = spans.setdefault(r.name, {"count": 0, "wall_s": 0.0,
-                                            "max_s": 0.0})
-            dur = max(r.t1 - r.t0, 0.0)
+            agg = spans.setdefault(name, {"count": 0, "wall_s": 0.0,
+                                          "max_s": 0.0})
+            dur = max(t1 - t0, 0.0)
             agg["count"] += 1
             agg["wall_s"] += dur
             agg["max_s"] = max(agg["max_s"], dur)
@@ -513,18 +499,17 @@ class Telemetry:
         for tid, tname in sorted(tnames.items()):
             events.append({"ph": "M", "name": "thread_name", "pid": pid,
                            "tid": tid, "args": {"name": tname}})
-        for r in records:
-            args = {k: v for k, v in r.attrs.items()}
-            args["id"] = r.span_id
-            if r.parent_id is not None:
-                args["parent"] = r.parent_id
+        for name, t0, t1, tid, span_id, parent_id, attrs, ph in records:
+            args = dict(attrs)
+            args["id"] = span_id
+            if parent_id is not None:
+                args["parent"] = parent_id
             ev: Dict[str, Any] = {
-                "name": r.name, "cat": "repro_torch", "ph": r.ph, "pid": pid,
-                "tid": r.tid, "ts": (r.t0 - self.t_epoch) * 1e6,
-                "args": args,
+                "name": name, "cat": "repro_torch", "ph": ph, "pid": pid,
+                "tid": tid, "ts": (t0 - self.t_epoch) * 1e6, "args": args,
             }
-            if r.ph == "X":
-                ev["dur"] = max(r.t1 - r.t0, 0.0) * 1e6
+            if ph == "X":
+                ev["dur"] = max(t1 - t0, 0.0) * 1e6
             else:
                 ev["s"] = "t"
             events.append(ev)
