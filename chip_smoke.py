@@ -32,7 +32,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    x 64 f32 points, 32 centroids) with ``substrate="hopper"``, with every
    kernel's launch counter zeroed just before and read just after; a
    kernel of that path (matmul, row moments, bitonic sort) the path never
-   launched fails the run;
+   launched fails the run, and so does a K-means step or tuned proxy
+   whose wall time was not taken as a captured CUDA graph's replays
+   (every ``generate_proxy`` report below logs how its two walls were
+   taken: ``graph``, or ``eager`` and why);
 4. checks: the K-means step's outputs, and the tuned proxy's outputs on
    the kernels against its stock-PyTorch form on the same inputs;
 5. main-path shapes: each of the path's kernels once more on the inputs
@@ -40,7 +43,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bound; a row moments call in its one-launch form that runs more than
    one device kernel fails the run;
 6. traces: one ``torch.profiler`` run each of the K-means step and the
-   tuned proxy — wall time, device busy share, top device kernels;
+   tuned proxy — wall time eager (median of 5 dispatches) and as the
+   port times it (median of 5 captured-graph replays, or eager where the
+   capture fails, with the reason), device busy share of each, top device
+   kernels — and the step-over-proxy speedup both ways;
 6b. workloads: phases 3 to 6 for each of TeraSort (2M records), PageRank
    (262,144 vertices, 4,194,304 zipf edges), AlexNet (batch 128, 32x32x3)
    and Inception-V3 (batch 32, 75x75x3) at ``SCALE``: ``generate_proxy``
@@ -63,6 +69,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    key of the reference benchmark's; then a fresh session on the same store
    replays every tuned proxy, which must take 0 compiles, one store hit
    a distinct key, and give the sweep's metrics bit for bit;
+6e. case_studies: the port's §IV case studies
+   (``repro_torch.bench.case_studies``, one ``--case`` a call) at the
+   reference's defaults (``--iters 16``, case A's K-means at scale 0.3,
+   case B's TeraSort and PageRank at 0.3 then 0.6, case C's five
+   workloads at 0.2), uncut, with ``--substrate hopper``, counters zeroed
+   just before and read after each case; each case's accuracies, case
+   C's ratios and orders and each timed run's timing mode logged.  Fails
+   if case A never launched matmul, row moments or the bitonic sort, case
+   B (whose TeraSort alone reaches a kernel) never launched the sort, or
+   a document lacks a key of the reference's;
 6d. serve (needs paper_repro): the proxy server, counters zeroed just
    before and read after the last server's shutdown.  First the port's
    ``serve_bench --check`` at the reference's defaults (8 shape classes,
@@ -84,13 +100,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tensor-core form of flash attention or of MoE dispatch never launched,
    fails the run.
 
+Each phase logs its seconds and the card's memory after it: allocated,
+reserved by the caching allocator, and free.
+
 The last lines are the kernel table as JSON (all six kernels: the first
 three with their launches over phase 3 and their phase-5 times, the other
 three with their launches over phase 7 and their full-width phase-2
 times, each with its device ms, and each with its launches over every
 workload of phase 6b and its times at those workloads' shapes, its
-launches over each workload of phase 6c, and its launches over phase 6d
-as ``serve_launches``), the
+launches over each workload of phase 6c, its launches over phase 6d
+as ``serve_launches``, and its launches over each case of phase 6e as
+``case_studies_launches``), the
 card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: the script
 exits non-zero without a CUDA device, and outside a checkout.
@@ -191,6 +211,11 @@ MAX_ITERS = 24
 #: (``benchmarks/paper_repro.py``: ``--scale 0.5 --iters 40``), uncut
 PAPER_SCALE = 0.5
 PAPER_ITERS = 40
+
+#: the case_studies phase's tuning iterations: the reference's default
+#: (``benchmarks/case_studies.py --iters 16``); each case's sizes are its
+#: function's defaults, the reference's
+CASE_ITERS = 16
 
 
 def log(msg: str) -> None:
@@ -854,6 +879,8 @@ def check_report(name: str, pb, rep, seconds: float, counts: dict,
         f"real_wall_s={rep.real_wall_time} proxy_wall_s={rep.proxy_wall_time} "
         f"speedup={rep.speedup}")
     log(f"  engine: {json.dumps(dict(rep.engine_stats))}")
+    log(f"  timing: real {json.dumps(dict(rep.real_timing))} proxy "
+        f"{json.dumps(dict(rep.proxy_timing))}")
     log(f"  {'metric':22s} {'target':>14s} {'proxy':>14s} accuracy")
     for k in rep.target_metrics:
         log(f"  {k:22s} {rep.target_metrics[k]:14.6g} "
@@ -889,11 +916,8 @@ def phase_main_all(torch, dev) -> list:
     pb, rep, counts, args = phase_main(torch, dev)
     phase_checks(torch, dev, pb, args)
     entries = phase_main_shapes(torch, dev, pb, counts)
-    phase_trace(torch, dev, "kmeans step",
-                lambda: WORKLOADS["kmeans"].step(*args))
-    vals = pb.lifted_values(dev)
-    proxy_fn = pb.build_eval_fn(dev)
-    phase_trace(torch, dev, "tuned proxy", lambda: proxy_fn(0, vals))
+    trace_pair(torch, dev, "kmeans", lambda: WORKLOADS["kmeans"].step(*args),
+               pb)
     return entries
 
 
@@ -907,6 +931,11 @@ def phase_main(torch, dev):
         f"{(x == 0).float().mean().item():.3f} zeros), centroids "
         f"{tuple(c.shape)}")
     pb, rep, counts, _ = run_generate(torch, dev, "kmeans", args)
+    for what, timing in (("step", rep.real_timing),
+                         ("tuned proxy", rep.proxy_timing)):
+        if timing.get("mode") != "graph":
+            raise fail(f"the main path's K-means {what} was not timed as a "
+                       f"captured CUDA graph: {json.dumps(dict(timing))}")
     return pb, rep, counts, args
 
 
@@ -1061,11 +1090,7 @@ def phase_workloads(torch, dev) -> tuple:
         check_step(torch, name, args)
         check_substrates(torch, dev, pb)
         rows += path_shapes(torch, dev, name, pb)
-        phase_trace(torch, dev, f"{name} step", lambda: w.step(*args))
-        vals = pb.lifted_values(dev)
-        proxy_fn = pb.build_eval_fn(dev)
-        phase_trace(torch, dev, f"{name} tuned proxy",
-                    lambda: proxy_fn(0, vals))
+        trace_pair(torch, dev, name, lambda: w.step(*args), pb)
     return launches, rows
 
 
@@ -1436,13 +1461,18 @@ def _device_ms(event) -> float:
     return us / 1e3
 
 
-def phase_trace(torch, dev, name: str, fn) -> None:
-    """Wall time of ``fn`` (median of 5, no profiler), and one profiled run
-    for the device's busy time (sum of its kernels) and top kernels."""
+def phase_trace(torch, dev, name: str, fn) -> dict:
+    """Wall time of ``fn`` eagerly (median of 5 dispatches, no profiler)
+    and as the port times it (``timed_wall``: median of 5 replays of one
+    captured CUDA graph, or eager where the capture fails), and one
+    profiled run for the device's busy time (sum of its kernels) and top
+    kernels.  Returns ``{"eager_ms", "timed_ms", "timing", "busy_ms"}``."""
     import statistics
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.signature import timed_wall
 
     fn()
     torch.cuda.synchronize()
@@ -1453,6 +1483,11 @@ def phase_trace(torch, dev, name: str, fn) -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
+    seconds, timing = timed_wall(fn, iters=5, device=dev)
+    out = {"eager_ms": wall_ms, "timed_ms": seconds * 1e3, "timing": timing,
+           "busy_ms": None}
+    walls_text = (f"wall eager {wall_ms:.3f} ms (median of 5, no profiler), "
+                  f"timed {out['timed_ms']:.3f} ms ({json.dumps(timing)})")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -1460,27 +1495,108 @@ def phase_trace(torch, dev, name: str, fn) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     if not kernels:
-        log(f"trace {name}: wall {wall_ms:.3f} ms; device time not measured "
-            f"(the profiler saw no kernel)")
-        return
-    busy = sum(_device_ms(e) for e in kernels)
-    log(f"trace {name}: wall {wall_ms:.3f} ms (median of 5, no profiler), "
-        f"device busy {busy:.3f} ms = {busy / wall_ms:.1%} of wall, "
+        log(f"trace {name}: {walls_text}; device time not measured (the "
+            f"profiler saw no kernel)")
+        return out
+    busy = out["busy_ms"] = sum(_device_ms(e) for e in kernels)
+    log(f"trace {name}: {walls_text}; device busy {busy:.3f} ms = "
+        f"{busy / wall_ms:.1%} of the eager wall, "
+        f"{busy / out['timed_ms']:.1%} of the timed one, "
         f"{sum(e.count for e in kernels)} kernel launches")
     for e in sorted(kernels, key=_device_ms, reverse=True)[:6]:
         log(f"  {_device_ms(e):9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return out
+
+
+def trace_pair(torch, dev, name: str, step_fn, pb) -> None:
+    """Traces of workload ``name``'s step and its tuned proxy ``pb`` (the
+    eval form the engine times), and the step-over-proxy speedup from the
+    eager walls and from the timed ones."""
+    step = phase_trace(torch, dev, f"{name} step", step_fn)
+    vals = pb.lifted_values(dev)
+    proxy_fn = pb.build_eval_fn(dev)
+    proxy = phase_trace(torch, dev, f"{name} tuned proxy",
+                        lambda: proxy_fn(0, vals))
+    log(f"speedup {name}: eager {step['eager_ms'] / proxy['eager_ms']:.4f}, "
+        f"timed {step['timed_ms'] / proxy['timed_ms']:.4f} (step "
+        f"{step['timing']['mode']}, proxy {proxy['timing']['mode']})")
+
+
+def phase_case_studies(torch, dev, work: Path) -> dict:
+    """The port's §IV case studies through their command line, one case a
+    call, at the reference's defaults with ``--substrate hopper``, every
+    launch counter zeroed just before and read after each case.  Fails
+    if case A never launched a main-path kernel, case B never launched
+    the sort (its TeraSort proxy), or a document lacks a reference key.
+    Returns ``{case: launch counts over it}``."""
+    from repro_torch.bench import case_studies
+    from repro_torch.kernels import ops
+
+    launches, records = {}, []
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    before = ops.launch_counts()
+    for case in ("a", "b", "c"):
+        out = work / f"case_{case}.json"
+        t0 = time.perf_counter()
+        rc = case_studies.main(["--case", case, "--iters", str(CASE_ITERS),
+                                "--substrate", "hopper", "--device", "cuda",
+                                "--out", str(out)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise fail(f"case_studies --case {case} returned {rc}")
+        (record,) = json.loads(out.read_text())
+        records.append(record)
+        after = ops.launch_counts()
+        launches[case] = {k: after[k] - before[k] for k in after}
+        before = after
+        log(f"case {case} ({record['case']}): {seconds:.1f} s, launches "
+            f"{json.dumps(launches[case])}")
+        if case == "a":
+            log(f"  sparse_mean_acc={record['sparse_mean_acc']:.4f} "
+                f"dense_mean_acc={record['dense_mean_acc']:.4f} "
+                f"({record['conclusion']}); dense per metric "
+                f"{json.dumps(record['dense_per_metric'])}")
+        elif case == "b":
+            for name in ("terasort", "pagerank"):
+                r = record[name]
+                log(f"  {name}: orig_mean_acc={r['orig_mean_acc']:.4f} "
+                    f"newcfg_mean_acc={r['newcfg_mean_acc']:.4f}")
+        else:
+            log(f"  generations {record['generations']}: trend_consistent="
+                f"{record['trend_consistent']}")
+            log(f"  real_order {record['real_order']}, ratios "
+                f"{json.dumps(record['real_ratios'])}")
+            log(f"  proxy_order {record['proxy_order']}, ratios "
+                f"{json.dumps(record['proxy_ratios'])}")
+        timings = record.get("timing") or {
+            f"{w}.{k}": t for w in ("terasort", "pagerank")
+            for k, t in record.get(w, {}).get("timing", {}).items()}
+        for what, timing in timings.items():
+            log(f"  timing {what}: {json.dumps(timing)}")
+    missing = case_studies.missing_keys(records)
+    if missing:
+        raise fail(f"the case_studies documents lack {missing}")
+    never = [k for k in MAIN_PATH_KERNELS if launches["a"][k] == 0]
+    if never:
+        raise fail(f"case A never launched {never}")
+    if launches["b"]["bitonic_sort"] == 0:
+        raise fail("case B's TeraSort never launched the bitonic sort")
+    return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="env,kernels,main,workloads,paper_repro,serve,"
-                            "bench",
+                    default="env,kernels,main,workloads,paper_repro,"
+                            "case_studies,serve,bench",
                     help="comma list of env, kernels, main (main includes "
                          "the checks and main-path shapes), workloads (the "
                          "other four workloads), paper_repro (the sweep of "
-                         "all five from BASE_P), serve (the proxy server; "
-                         "needs paper_repro), bench (needs kernels)")
+                         "all five from BASE_P), case_studies (the paper's "
+                         "§IV), serve (the proxy server; needs "
+                         "paper_repro), bench (needs kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     if "bench" in phases and "kernels" not in phases:
@@ -1509,7 +1625,11 @@ def main(argv=None) -> int:
     def timed(name, fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
-        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        free, total = torch.cuda.mem_get_info(dev)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s; device memory "
+            f"allocated {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, "
+            f"reserved {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB, "
+            f"free {free / 2**30:.2f} of {total / 2**30:.2f} GiB")
         return out
 
     timed("env", phase_env, torch, dev)  # always: every phase's set-up
@@ -1521,13 +1641,16 @@ def main(argv=None) -> int:
     launches, path_rows = {}, []
     if "workloads" in phases:
         launches, path_rows = timed("workloads", phase_workloads, torch, dev)
-    paper_launches, serve_launches = {}, {}
+    paper_launches, serve_launches, case_launches = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         work = Path(work)
         if "paper_repro" in phases:
             paper_launches, proxies = timed(
                 "paper_repro", phase_paper_repro, torch, dev,
                 str(work / "sweep_store"))
+        if "case_studies" in phases:
+            case_launches = timed("case_studies", phase_case_studies, torch,
+                                  dev, work)
         if "serve" in phases:
             serve_launches = timed("serve", phase_serve, torch, dev, work,
                                    proxies)
@@ -1539,6 +1662,8 @@ def main(argv=None) -> int:
         e["paper_repro_launches"] = {w: c[e["name"]]
                                      for w, c in paper_launches.items()}
         e["serve_launches"] = serve_launches.get(e["name"])
+        e["case_studies_launches"] = {c: n[e["name"]]
+                                      for c, n in case_launches.items()}
         e["workload_shapes"] = [
             {k: r[k] for k in ("workload", "shape", "dtype", "max_abs_err",
                                "ms", "device_ms", "plain_ms", "bound_ms",

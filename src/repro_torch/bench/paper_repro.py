@@ -21,6 +21,8 @@ Flags:
   --out PATH     JSON output path (default results/paper_repro.json)
   --store DIR    persistent ProxyStore directory (needs the shared session)
   --device D     cuda (the default) or cpu
+  --substrate S  torch (the default, stock ATen) or hopper (the proxies'
+                 sort, matrix and statistics nodes on the kernels)
 
 Output: a per-workload tuning log and a summary table, and the JSON
 document of the reference benchmark, key for key::
@@ -38,6 +40,8 @@ document of the reference benchmark, key for key::
        "engine_stats": {hits, misses, compiles, ...}},  # this workload's
       ...                                               # cache traffic
     ],
+    # beyond the reference's keys, each record's "real_timing" and
+    # "proxy_timing": how each wall time was taken (Signature.timing)
     "session": {              # absent with --no-share
       "stats": {hits, misses, compiles, cross_workload_hits, ...},
       "per_workload": {name: stats-delta},
@@ -55,6 +59,7 @@ from typing import Any, Dict, List, Optional
 from repro_torch.bench._io import write_json
 from repro_torch.core import EvalSession, ProxyStore, generate_proxy
 from repro_torch.core.motifs import PVector
+from repro_torch.core.motifs.base import SUBSTRATES
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.workloads import WORKLOADS
 
@@ -84,6 +89,9 @@ RECORD_KEYS = ("workload", "scale", "qualified", "mean_accuracy",
                "proxy_wall_time_s", "speedup", "iterations", "evals",
                "tree_depth", "target_metrics", "proxy_metrics", "proxy_json",
                "trace", "tuning_wall_s", "engine_stats")
+#: the port's own keys of each record: how the real step's and the
+#: proxy's wall times were taken (``Signature.timing``)
+EXTRA_RECORD_KEYS = ("real_timing", "proxy_timing")
 ENGINE_KEYS = ("hits", "misses", "compiles")
 SESSION_KEYS = ("stats", "per_workload", "total_tuning_wall_s")
 SESSION_STATS_KEYS = ("hits", "misses", "compiles", "cross_workload_hits")
@@ -108,17 +116,18 @@ def missing_keys(doc: Dict[str, Any], shared: bool = True) -> List[str]:
 
 def run_one(name: str, scale: float, max_iters: int, seed: int = 0,
             session: Optional[EvalSession] = None,
-            device: DeviceLike = None):
+            device: DeviceLike = None, substrate: Optional[str] = None):
     """``generate_proxy`` on workload ``name`` from its ``BASE_P``; prints
-    the report and per-metric accuracy.  Returns (proxy, report, tuning
-    wall seconds)."""
+    the report and per-metric accuracy.  ``substrate`` ``None`` takes the
+    session's, else ``"torch"``.  Returns (proxy, report, tuning wall
+    seconds)."""
     w = WORKLOADS[name]
     args = w.inputs(seed, scale, device=device)
     t0 = time.time()
     pb, rep = generate_proxy(
         w.step, *args, name=name, hints=w.hints,
         base_p=BASE_P.get(name, PVector()), max_iters=max_iters, seed=seed,
-        session=session, device=device)
+        session=session, substrate=substrate, device=device)
     wall = time.time() - t0
     print(f"{rep.summary()}  (tuning wall {wall:.0f}s, "
           f"engine {rep.engine_stats})")
@@ -149,6 +158,8 @@ def record(name: str, scale: float, pb, rep, wall: float) -> Dict[str, Any]:
         "trace": [dataclasses.asdict(t) for t in rep.trace],
         "tuning_wall_s": wall,
         "engine_stats": dict(rep.engine_stats),
+        "real_timing": dict(rep.real_timing),
+        "proxy_timing": dict(rep.proxy_timing),
     }
 
 
@@ -176,18 +187,21 @@ def main(argv=None) -> int:
                          "the shared session")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--substrate", default="torch", choices=SUBSTRATES,
+                    help="hopper: the proxies' hot loops on the kernels")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
     names = sorted(WORKLOADS) if args.workload == "all" else [args.workload]
     store = ProxyStore(args.store) if args.store else None
     session = None if args.no_share else EvalSession(
-        run=True, seed=0, store=store, device=dev)
+        run=True, seed=0, store=store, substrate=args.substrate, device=dev)
     records: List[Dict[str, Any]] = []
     t_sweep = time.time()
     for name in names:
         pb, rep, wall = run_one(name, args.scale, args.iters,
-                                session=session, device=dev)
+                                session=session, device=dev,
+                                substrate=args.substrate)
         records.append(record(name, args.scale, pb, rep, wall))
     total_wall = time.time() - t_sweep
 
@@ -198,14 +212,18 @@ def main(argv=None) -> int:
     write_json(args.out, doc)
 
     print("\n=== paper reproduction summary (Table VI / Fig. 4 analog) ===")
-    print(f"{'workload':14s} {'mean_acc':>9s} {'speedup':>8s} "
-          f"{'real_s':>8s} {'proxy_s':>9s} {'iters':>6s} {'compiles':>9s}")
+    print(f"{'workload':14s} {'qualified':>9s} {'mean_acc':>9s} "
+          f"{'speedup':>8s} {'real_s':>10s} {'proxy_s':>10s} {'iters':>6s} "
+          f"{'compiles':>9s}  timing (real/proxy)")
     for r in records:
         sp = f"{r['speedup']:.2f}x" if r["speedup"] else "n/a"
-        print(f"{r['workload']:14s} {r['mean_accuracy']:9.1%} {sp:>8s} "
-              f"{r['real_wall_time_s']:8.3f} {r['proxy_wall_time_s']:9.4f} "
+        print(f"{r['workload']:14s} {str(r['qualified']):>9s} "
+              f"{r['mean_accuracy']:9.1%} {sp:>8s} "
+              f"{r['real_wall_time_s']:10.6f} {r['proxy_wall_time_s']:10.6f} "
               f"{r['iterations']:6d} "
-              f"{r['engine_stats'].get('compiles', 0):9d}")
+              f"{r['engine_stats'].get('compiles', 0):9d}  "
+              f"{r['real_timing'].get('mode')}/"
+              f"{r['proxy_timing'].get('mode')}")
     if session is not None:
         st = session.stats()
         print(f"\nshared session: {st['compiles']} compiles for "

@@ -38,13 +38,15 @@ SAME session: the front-end restarts while the engine stays warm.
 ``--trace out.json`` runs the whole bench with a live
 :class:`~repro_torch.runtime.telemetry.Telemetry` hub threaded through the
 session (every ProxyServer inherits it), exports the Chrome trace-event
-JSON at the end (per-request spans decompose into
-queue-wait/batch-assembly/service children), and times the warm
-batched-evaluate path enabled-vs-disabled; with ``--check`` the measured
-overhead gates under ``--trace-overhead-bound`` and
-``telemetry.snapshot()`` must superset the session's own ``stats()``
-counters.  ``repro_torch.bench.trace_summary`` prints the per-stage wall
-breakdown from the exported file.
+JSON once the phases are done (per-request spans decompose into
+queue-wait/batch-assembly/service children), and then times the warm
+batched-evaluate path enabled-vs-disabled (after the export, so the
+probe's spans do not push the run's out of the hub's ring); with
+``--check`` the measured overhead gates under
+``--trace-overhead-bound`` and ``telemetry.snapshot()`` must superset
+the session's own ``stats()`` counters.
+``repro_torch.bench.trace_summary`` prints the per-stage wall breakdown
+from the exported file.
 
 Beyond the reference's flags: ``--device`` (cuda unless ``cpu`` is
 asked for) and ``--substrate`` (``torch``, the default, or ``hopper``:
@@ -60,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import threading
@@ -92,6 +95,13 @@ POOL_SPECS: Sequence[Tuple[str, int]] = (
     ("matrix", 1 << 10), ("transform", 1 << 10),
     ("statistics", 1 << 11), ("logic", 1 << 11),
 )
+
+#: the least length of one timed window of the telemetry-overhead probe.
+#: The reference's fixed 10 (quick) or 20 reps of the cached evaluate
+#: path last about half a millisecond here, and scheduler noise on a
+#: loaded host swamps a window that short; the reps are calibrated so a
+#: window lasts this long, and a window counts its median batch
+OVERHEAD_WINDOW_S = 0.05
 
 #: the reference document's keys, block by block ("" is the top level).
 #: ``tune`` is written with ``--tunes`` > 0, ``trace`` with ``--trace``,
@@ -404,43 +414,66 @@ def main(argv=None) -> int:
     if hub is not None:
         from repro_torch.runtime.telemetry import NULL
 
+        # the trace is the run's, taken before the probe: the probe's
+        # enabled windows (reps x rounds batches, a span and an instant
+        # per class each) would push the run's spans out of the ring
+        traced = hub.snapshot()
+        n_events = hub.export_trace(args.trace)
+
         # enabled-vs-disabled overhead on the warm batched-evaluate path:
         # every class is cached, so the loop times engine dispatch (the
         # path the telemetry spans/events decorate), not profiles
         def timed_evals(reps: int) -> float:
+            """``reps`` batches' seconds, telemetry off."""
             t0 = time.perf_counter()
             for _ in range(reps):
                 session.evaluate_batch(pool)
             return time.perf_counter() - t0
 
-        # paired rounds, each timing the enabled path right before the
-        # disabled one, and the round with the median ratio.  (The
-        # reference compares the fastest round of each mode; on a host
-        # whose CPU clock shifts between rounds, that reads the shift as
-        # overhead or hides it.)
+        def paired_round(reps: int) -> Tuple[float, float]:
+            """``(enabled_s, disabled_s)``: ``reps`` batches in each mode,
+            the modes taking turns batch by batch (each pair in the other
+            order to the last), each mode's window its median batch times
+            ``reps``.  Turns a batch long put both modes under the same
+            host (a clock shift, another guest on the CPU), and the
+            median keeps a stall that lands on a few batches out."""
+            times = {True: [], False: []}
+            for i in range(reps):
+                for on in ((True, False) if i % 2 == 0 else (False, True)):
+                    session.set_telemetry(hub if on else NULL)
+                    t0 = time.perf_counter()
+                    session.evaluate_batch(pool)
+                    times[on].append(time.perf_counter() - t0)
+            return (statistics.median(times[True]) * reps,
+                    statistics.median(times[False]) * reps)
+
+        # paired rounds and the round with the median ratio.  (The
+        # reference times all of one mode's reps, then all of the
+        # other's, and compares the fastest round of each; on a host
+        # whose CPU clock shifts between windows, that reads the shift as
+        # overhead or hides it.)  The reps start at the reference's and
+        # double, disabled, until one window lasts OVERHEAD_WINDOW_S; both
+        # modes then run those reps in every round.
         reps = 10 if args.quick else 20
         rounds = 3 if args.quick else 5
+        prev_hub = session.set_telemetry(NULL)
+        timed_evals(2)
+        while timed_evals(reps) < OVERHEAD_WINDOW_S:
+            reps *= 2
         pairs = []
-        prev_hub = None
         for _ in range(rounds):
-            session.set_telemetry(hub)
-            timed_evals(2)  # per-round warm-up, outside the measurement
-            enabled = timed_evals(reps)
-            prev_hub = session.set_telemetry(NULL)
-            timed_evals(2)
-            pairs.append((enabled, timed_evals(reps)))
+            paired_round(2)  # per-round warm-up, outside the measurement
+            pairs.append(paired_round(reps))
         session.set_telemetry(prev_hub)
         pairs.sort(key=lambda p: p[0] / p[1] if p[1] > 0 else 0.0)
         enabled_s, disabled_s = pairs[len(pairs) // 2]
         overhead = ((enabled_s - disabled_s) / disabled_s
                     if disabled_s > 0 else 0.0)
-
-        snapshot = hub.snapshot()
-        n_events = hub.export_trace(args.trace)
+        snapshot = hub.snapshot()  # the gates' counters, after the probe
         doc["trace"] = {
             "path": args.trace, "events": n_events,
-            "spans_dropped": snapshot.get("spans_dropped", 0),
-            "span_names": sorted(snapshot.get("spans", {})),
+            "spans_dropped": traced.get("spans_dropped", 0),
+            "span_names": sorted(traced.get("spans", {})),
             "overhead": {"enabled_s": enabled_s, "disabled_s": disabled_s,
                          "fraction": overhead, "reps": reps,
                          "rounds": rounds},

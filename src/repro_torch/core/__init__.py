@@ -47,6 +47,7 @@ from repro_torch.core.signature import (  # noqa: F401
     measure_wall_time,
     profile_call,
     signature_of_call,
+    timed_wall,
 )
 from repro_torch.core.store import (  # noqa: F401
     STORE_VERSION,

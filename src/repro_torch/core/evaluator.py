@@ -10,7 +10,10 @@ signature; the first time a signature is seen its eval form is profiled
 once (the port's "compile") and its ``Signature`` cached in an LRU, with
 the lifted values of that first candidate as its example input.  With
 ``run=True`` each signature's wall time is measured once, on that
-example.  Batched metrics therefore equal serial ones.
+example: a captured CUDA graph's replays where the eval form can be
+captured, else eager dispatch, as
+:func:`~repro_torch.core.signature.timed_wall` records.  Batched metrics
+therefore equal serial ones.
 
 :class:`EvalSession` scopes this to a whole multi-workload run (the
 paper-repro sweep): one :class:`ExecutableCache` shared across every
@@ -42,7 +45,7 @@ from repro_torch.core.motifs.base import (
     SUBSTRATES,
 )
 from repro_torch.core.proxy_graph import ProxyBenchmark
-from repro_torch.core.signature import Signature, measure_wall_time, profile_call
+from repro_torch.core.signature import Signature, profile_call, timed_wall
 from repro_torch.core.store import canonical_key, device_key, key_digest
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -334,7 +337,7 @@ class BatchEvaluator:
                 entry.key_attr = _key_attr(entry.sig_key)
             with tel.span("eval.execute", key=entry.key_attr or "",
                           iters=self.wall_iters):
-                entry.wall_time = measure_wall_time(
+                entry.wall_time, entry.signature.timing = timed_wall(
                     lambda: entry.fn(self.seed, entry.lifted_example),
                     iters=self.wall_iters, device=self.device)
             entry.signature.wall_time = entry.wall_time
@@ -545,8 +548,8 @@ def serial_evaluate_batch(pbs: Sequence[ProxyBenchmark], *, run: bool = True,
         fn = pb.build_eval_fn(dev)
         sig = profile_call(fn, seed, vals)
         if run:
-            sig.wall_time = measure_wall_time(lambda: fn(seed, vals),
-                                              device=dev)
+            sig.wall_time, sig.timing = timed_wall(lambda: fn(seed, vals),
+                                                   device=dev)
         m = normalized_vector(sig, include_rates=run)
         if metrics is not None:
             m = {k: m.get(k, 0.0) for k in metrics}

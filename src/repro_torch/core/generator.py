@@ -59,6 +59,10 @@ class ProxyReport:
     device: str = ""
     #: True when the tuner ran with an elasticity-prior table
     prior_seeded: bool = False
+    #: how each wall time was taken (``Signature.timing``): a captured
+    #: CUDA graph's replays, or eager dispatch and why
+    real_timing: Mapping[str, str] = field(default_factory=dict)
+    proxy_timing: Mapping[str, str] = field(default_factory=dict)
 
     def summary(self) -> str:
         sp = f"{self.speedup:.0f}x" if self.speedup else "n/a"
@@ -258,6 +262,8 @@ def generate_proxy(
         qualification_rate=result.qualification_rate,
         device=str(dev),
         prior_seeded=result.prior_seeded,
+        real_timing=dict(target_signature.timing),
+        proxy_timing=dict(final_sig.timing),
     )
     qualified = dataclasses.replace(
         result.proxy,

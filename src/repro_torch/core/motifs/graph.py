@@ -44,9 +44,10 @@ class GraphMotif(Motif):
         dev = resolve_device(device)
         v, e = self._sizes(p)
         src, dst = gen_graph(make_generator(seed, dev), v, e, p.spec())
+        # filled in on the device: a host copy would break a graph capture
         return {"src": src, "dst": dst,
-                "num_vertices": torch.tensor(v, dtype=torch.int32,
-                                             device=dev)}
+                "num_vertices": torch.scalar_tensor(v, dtype=torch.int32,
+                                                    device=dev)}
 
     def apply(self, p: PVector, inputs: Dict[str, Any], variant: str = "") -> Any:
         var = self.resolve_variant(variant)
@@ -66,7 +67,10 @@ class GraphMotif(Motif):
         if var == "traversal":
             iters = max(min(int(p.chunk_size).bit_length(), 12), 4)
             frontier = torch.zeros(v, dtype=torch.bool, device=src.device)
-            frontier[0] = True
+            # the root, filled in on the device: setting a Python bool
+            # copies it from the host, which a graph capture refuses
+            frontier[0] = torch.scalar_tensor(True, dtype=torch.bool,
+                                              device=src.device)
             dst64 = dst.to(torch.int64)
             for _ in range(iters):
                 active = frontier[src].to(torch.int32)

@@ -30,13 +30,28 @@ sort, data_movement, control, collective.
 * peak memory: the CUDA allocator's peak over the profiled run, less what
   was allocated before it, plus the arguments (0.0 on the CPU).
 
-``Signature`` and the ``vector()`` key names are the reference's.
+Wall time (the paper's runtime metric) is taken apart from the profile.
+The reference times one compiled executable; the port's counterpart on
+CUDA is one captured CUDA graph (:func:`timed_wall`): eager warm-up runs
+on a side stream, one capture, then the median of ``iters`` replays,
+each followed by a synchronise, so no per-op host launch is timed.  The
+function's generators come from a :class:`~repro_torch.data.generators.
+GeneratorSupply` registered with the graph.  A function that cannot be
+captured (it reads a tensor back to the host, as ``bincount`` does to
+size its output) is timed eagerly instead, and ``Signature.timing`` says
+so and why; on the CPU, which has no graphs, timing is always eager.
+
+``Signature`` and the ``vector()`` key names are the reference's;
+``timing`` is the port's own.
 """
 from __future__ import annotations
 
+import threading
 import time
+import traceback
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +59,7 @@ import torch.utils.flop_counter as _flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.data.generators import GeneratorSupply
 from repro_torch.device import synchronize
 from repro_torch.kernels.flash_attention import flops as _flash_flops
 
@@ -248,6 +264,10 @@ class Signature:
     conv_flops: float = 0.0
     wall_time: Optional[float] = None
     raw_cost: Dict[str, float] = field(default_factory=dict)
+    #: how ``wall_time`` was taken: ``{"mode": "graph"}`` (a captured CUDA
+    #: graph's replays) or ``{"mode": "eager", "reason": ...}``; empty
+    #: without a wall time
+    timing: Dict[str, str] = field(default_factory=dict)
 
     @property
     def arith_intensity(self) -> float:
@@ -336,15 +356,202 @@ def measure_wall_time(fn: Callable[[], Any], warmup: int = 2, iters: int = 5,
     return float(np.median(times))
 
 
+class NotCaptured(RuntimeError):
+    """A function could not be captured as a CUDA graph."""
+
+
+#: this package's source tree: where a failed capture's reason points
+_PACKAGE = Path(__file__).resolve().parents[1]
+
+
+def _where(exc: BaseException) -> str:
+    """The innermost frame of this package in ``exc``'s traceback, as
+    ``file:line (function)``: the call that broke the capture."""
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if Path(f.filename).resolve().is_relative_to(_PACKAGE)]
+    if not frames:
+        return "outside the package"
+    f = frames[-1]
+    rel = Path(f.filename).resolve().relative_to(_PACKAGE.parent)
+    return f"{rel}:{f.lineno} ({f.name})"
+
+
+def _abandon_capture(graph, device: torch.device) -> None:
+    """After a failed capture: stop routing this thread's allocations to
+    the graph's pool (``capture_end`` raised before it could), then free
+    the graph, whose ``reset`` releases the pool, so a later capture in
+    this process starts clean.  The first call is a PyTorch internal, so
+    it is best effort; releasing the pool by hand as well would release
+    it twice."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if end is not None:
+        try:
+            end(index, graph.pool())
+        except (RuntimeError, TypeError):
+            pass  # capture_end had ended it, or another signature
+    _free_graph(graph)
+
+
+def _free_graph(graph) -> None:
+    """Free ``graph`` and give its memory pool back to the device.  A
+    reset only marks the pool freeable: the caching allocator keeps its
+    blocks reserved until it next empties its cache, so a sweep's
+    hundreds of captures would hold nearly the whole card, and memory
+    that cuDNN, cuBLAS or a module load allocates outside the caching
+    allocator (a new thread's handle, a kernel's first launch) would
+    fail."""
+    graph.reset()
+    torch.cuda.empty_cache()
+
+
+_capture_streams = threading.local()
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """This thread's side stream on ``device`` for every warm-up and
+    capture.  One stream, not a new one a capture: PyTorch keeps some
+    state for each stream a library runs on (cuBLAS a workspace), and a
+    fresh stream a capture would add that state each time until the
+    stream pool wraps."""
+    streams = getattr(_capture_streams, "by_device", None)
+    if streams is None:
+        streams = _capture_streams.by_device = {}
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in streams:
+        streams[index] = torch.cuda.Stream(index)
+    return streams[index]
+
+
+class CapturedGraph:
+    """``fn`` captured as one CUDA graph on ``device``.
+
+    ``warmup`` eager runs on a side stream (PyTorch's capture rule; they
+    also build every kernel, plan and workspace at first use, and record
+    the generators ``fn`` makes), then one capture on that stream.
+    ``outputs`` is what the capture returned: every :meth:`replay`
+    rewrites it in place, reseeding the generators first, so a replay
+    computes what an eager call on the same inputs computes.
+    :meth:`close` (or leaving the ``with`` block) frees the graph and
+    gives its memory pool back to the device.  Raises
+    :class:`NotCaptured` when the capture fails; the capture is then
+    ended and its pool given back."""
+
+    def __init__(self, fn: Callable[[], Any], warmup: int = 2,
+                 device: Optional[torch.device] = None):
+        device = device or torch.device("cuda")
+        self.supply = supply = GeneratorSupply(device)
+        side = _capture_stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(max(warmup, 1)):
+                try:
+                    with supply.recording():
+                        fn()
+                except RuntimeError as exc:
+                    if supply.seeds is None:
+                        raise  # the first eager run: a fault, no capture
+                    raise NotCaptured(str(exc)) from exc
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = graph = torch.cuda.CUDAGraph()
+        try:
+            for gen in supply.prepare():
+                graph.register_generator_state(gen)
+        except AttributeError as exc:
+            raise NotCaptured(f"this torch cannot register a generator "
+                              f"with a CUDA graph ({exc})") from exc
+        failure: Optional[BaseException] = None
+        with torch.cuda.stream(side):
+            # thread_local: other threads (a server's clients) may
+            # allocate while this one captures
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                with supply.capturing():
+                    self.outputs = fn()
+            except Exception as exc:  # noqa: BLE001 — the capture must end
+                failure = exc
+            try:
+                graph.capture_end()
+            except RuntimeError as exc:
+                failure = failure or exc
+        if failure is not None:
+            self.outputs = None
+            # the failed run's tensors, allocated from the graph's pool,
+            # live on in its traceback's frames: free them first, so the
+            # whole pool goes back to the device
+            traceback.clear_frames(failure.__traceback__)
+            _abandon_capture(graph, device)
+            if not isinstance(failure, RuntimeError):
+                raise failure
+            first = (str(failure).strip().splitlines() or [""])[0]
+            raise NotCaptured(f"{first} at {_where(failure)}") from failure
+
+    def replay(self) -> None:
+        self.supply.reset()
+        self.graph.replay()
+
+    def close(self) -> None:
+        self.outputs = None
+        _free_graph(self.graph)
+
+    def __enter__(self) -> "CapturedGraph":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def graph_wall_time(fn: Callable[[], Any], warmup: int = 2, iters: int = 5,
+                    device: Optional[torch.device] = None) -> float:
+    """Median wall-clock seconds of one replay of ``fn`` captured as a
+    CUDA graph (:class:`CapturedGraph`), plus a synchronise: one untimed
+    replay (the graph's upload), then ``iters`` timed ones.  Raises
+    :class:`NotCaptured` when ``fn`` cannot be captured."""
+    device = device or torch.device("cuda")
+    with CapturedGraph(fn, warmup, device) as graph:
+        graph.replay()
+        synchronize(device)
+        times = []
+        for _ in range(iters):
+            graph.supply.reset()
+            t0 = time.perf_counter()
+            graph.graph.replay()
+            synchronize(device)
+            times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def timed_wall(fn: Callable[[], Any], warmup: int = 2, iters: int = 5,
+               device: Optional[torch.device] = None
+               ) -> Tuple[float, Dict[str, str]]:
+    """``(seconds, timing)``: the wall time of ``fn()`` and how it was
+    taken.  On CUDA, :func:`graph_wall_time` (``{"mode": "graph"}``), or,
+    where the capture fails, :func:`measure_wall_time` with the reason
+    (``{"mode": "eager", "reason": ...}``); on the CPU always eager."""
+    device = device or torch.device("cpu")
+    if device.type != "cuda":
+        return (measure_wall_time(fn, warmup, iters, device),
+                {"mode": "eager", "reason": "no CUDA graph on the cpu"})
+    try:
+        return graph_wall_time(fn, warmup, iters, device), {"mode": "graph"}
+    except NotCaptured as exc:
+        return (measure_wall_time(fn, warmup, iters, device),
+                {"mode": "eager", "reason": f"not captured: {exc}"})
+
+
 def signature_of_call(fn: Callable, *args, run: bool = True,
                       iters: int = 5,
                       device: Optional[torch.device] = None) -> Signature:
     """Profile ``fn(*args)`` and optionally time it (the paper's 'runtime'
     metric).  The port of ``signature_of_jitted``: here the profile is
-    one eager execution rather than a compile."""
+    one eager execution rather than a compile, and the wall time that of
+    one captured CUDA graph where ``fn`` can be captured
+    (:func:`timed_wall`)."""
     device = device or _device_of(args)
     sig = profile_call(fn, *args, device=device)
     if run:
-        sig.wall_time = measure_wall_time(lambda: fn(*args), iters=iters,
-                                          device=device)
+        sig.wall_time, sig.timing = timed_wall(lambda: fn(*args),
+                                               iters=iters, device=device)
     return sig

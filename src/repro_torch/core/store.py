@@ -50,8 +50,11 @@ from repro_torch.core.signature import Signature
 
 #: bump when the entry layout or the meaning of a persisted field
 #: changes; entries from other versions are stale by definition and
-#: degrade to cold profiles.
-STORE_VERSION = 1
+#: degrade to cold profiles.  Version 2: a CUDA wall time is a captured
+#: graph's replays (``Signature.timing`` records how each was taken),
+#: where version 1's was eager dispatch, so a version-1 wall must not
+#: answer.
+STORE_VERSION = 2
 
 #: the store-key components, in order.  The device key takes the
 #: reference's mesh key's place.  The substrate is not a separate

@@ -15,12 +15,22 @@ them.  Masking with keep-probability 1.0 keeps every element because
 identity, so both forms give equal values.
 
 Keys and payloads are ``torch.uint32``, as in the reference.
+
+A function that makes its generators through :func:`make_generator` and
+:func:`generator_from` can be captured as a CUDA graph: under a
+:class:`GeneratorSupply` both are answered from generators made before
+the capture (see :mod:`repro_torch.core.signature`).  Apart from
+:func:`generator_from`'s seed read, which the supply answers, nothing
+here reads a tensor back to the host or copies one from it, which a
+capture refuses.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +59,103 @@ def derive_seed(*parts: int) -> int:
     return int(state >> np.uint64(1))
 
 
+class GeneratorSupply:
+    """The generators of one function, made before it is captured as a
+    CUDA graph.
+
+    A graph replays a random draw only from a generator registered with
+    it before the capture, and a capture may not read a tensor back to
+    the host.  So the function first runs eagerly under
+    :meth:`recording` (once or more), where every :func:`make_generator`
+    and :func:`generator_from` call is answered as usual and its seed
+    noted; :meth:`prepare` then makes one generator per call, seeded as
+    that call's was, for the graph to register; under :meth:`capturing`
+    the calls are answered from them, in order, with no host read; and
+    :meth:`reset` reseeds them before each replay, so that every replay
+    draws what the eager run drew.
+
+    The function must ask for the same seeds in the same order on every
+    call: a recording that differs from the first, or a capture that asks
+    :func:`make_generator` for another seed, raises.  A seed leaf that
+    :func:`generator_from` reads is taken at its recorded value: every
+    such leaf of this package is drawn by :func:`gen_seed` from a
+    generator of the call's own seeds, so it is the same at every call."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seeds: Optional[List[int]] = None
+        self.generators: List[torch.Generator] = []
+        self._calls: Optional[List[int]] = None
+        self._capturing = False
+
+    @contextlib.contextmanager
+    def recording(self) -> Iterator["GeneratorSupply"]:
+        calls: List[int] = []
+        with self._active():
+            self._calls = calls
+            try:
+                yield self
+            finally:
+                self._calls = None
+        if self.seeds is None:
+            self.seeds = calls
+        elif calls != self.seeds:
+            raise RuntimeError(
+                f"the function asked for {len(calls)} generators "
+                f"{calls[:4]}... in one run and {len(self.seeds)} "
+                f"{self.seeds[:4]}... in another")
+
+    def prepare(self) -> List[torch.Generator]:
+        """One generator per recorded call, seeded as that call's was."""
+        self.generators = [torch.Generator(device=self.device)
+                           for _ in self.seeds or ()]
+        self.reset()
+        return self.generators
+
+    def reset(self) -> None:
+        for gen, seed in zip(self.generators, self.seeds or ()):
+            gen.manual_seed(seed)
+
+    @contextlib.contextmanager
+    def capturing(self) -> Iterator["GeneratorSupply"]:
+        with self._active():
+            self._capturing, self._next = True, 0
+            try:
+                yield self
+            finally:
+                self._capturing = False
+
+    @contextlib.contextmanager
+    def _active(self) -> Iterator[None]:
+        prev = getattr(_SUPPLY, "current", None)
+        _SUPPLY.current = self
+        try:
+            yield
+        finally:
+            _SUPPLY.current = prev
+
+    def _take(self, seed: Optional[int]) -> torch.Generator:
+        i = self._next
+        if i >= len(self.generators):
+            raise RuntimeError(f"the captured run asked for more than the "
+                               f"{len(self.generators)} generators recorded")
+        if seed is not None and seed != self.seeds[i]:
+            raise RuntimeError(f"the captured run asked generator {i} for "
+                               f"seed {seed}, recorded {self.seeds[i]}")
+        self._next = i + 1
+        return self.generators[i]
+
+
+#: the supply answering this thread's generator calls, if any
+_SUPPLY = threading.local()
+
+
 def make_generator(seed: int, device: torch.device) -> torch.Generator:
+    supply = getattr(_SUPPLY, "current", None)
+    if supply is not None:
+        if supply._capturing:
+            return supply._take(int(seed))
+        supply._calls.append(int(seed))
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
@@ -62,8 +168,12 @@ def gen_seed(gen: torch.Generator) -> torch.Tensor:
 
 
 def generator_from(seed: torch.Tensor) -> torch.Generator:
-    """The generator a :func:`gen_seed` leaf stands for (reading it waits
-    for its device)."""
+    """The generator a :func:`gen_seed` leaf stands for.  Reading the leaf
+    waits for its device, except under a capturing
+    :class:`GeneratorSupply`, which answers from the value recorded."""
+    supply = getattr(_SUPPLY, "current", None)
+    if supply is not None and supply._capturing:
+        return supply._take(None)
     return make_generator(int(seed), seed.device)
 
 
@@ -82,13 +192,22 @@ def zipf_probs(n: int, alpha: float = 1.2) -> np.ndarray:
     return (p / p.sum()).astype(np.float32)
 
 
+def _scalar(v, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``v`` (a Python number or a tensor) as a 0-d tensor on ``device``.
+    A number is filled in on the device (``scalar_tensor``), never copied
+    from the host as ``torch.as_tensor`` would: a copy waits for the
+    host, which a CUDA graph capture refuses.  The value is the same."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype)
+    return torch.scalar_tensor(v, dtype=dtype, device=device)
+
+
 def _apply_sparsity(gen: torch.Generator, x: torch.Tensor,
                     sparsity) -> torch.Tensor:
     """Zero a ``sparsity`` fraction of ``x``; ``sparsity`` may be a tensor."""
     if isinstance(sparsity, (int, float)) and float(sparsity) <= 0.0:
         return x
-    keep_p = 1.0 - torch.as_tensor(sparsity, dtype=torch.float32,
-                                   device=x.device)
+    keep_p = 1.0 - _scalar(sparsity, torch.float32, x.device)
     keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_p
     return torch.where(keep, x, torch.zeros_like(x))
 
@@ -97,12 +216,12 @@ def _apply_scale(x: torch.Tensor, scale) -> torch.Tensor:
     """Multiply float data by the distribution scale (tensor or float)."""
     if isinstance(scale, (int, float)) and float(scale) == 1.0:
         return x
-    return x * torch.as_tensor(scale, device=x.device).to(x.dtype)
+    return x * _scalar(scale, torch.float32, x.device).to(x.dtype)
 
 
 def _zipf_cdf(cats: int, alpha, device: torch.device) -> torch.Tensor:
     """f32 zipf CDF over ``cats`` categories; ``alpha`` may be a tensor."""
-    alpha = torch.as_tensor(alpha, device=device).to(torch.float32)
+    alpha = _scalar(alpha, torch.float32, device)
     ranks = torch.arange(1, cats + 1, dtype=torch.float32, device=device)
     p = torch.pow(ranks, -alpha)
     return torch.cumsum(p / torch.sum(p), 0)

@@ -23,6 +23,7 @@ import torch
 
 from torch_parity import cuda_device, np_rand, to_torch  # noqa: F401
 
+from repro_torch.core.motifs import MOTIFS
 from repro_torch.kernels import bitonic_sort as tbs
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import matmul as tmm
@@ -345,3 +346,196 @@ def test_cuda_big_data_steps_match_the_host(cuda_device, name, scale):
     assert torch.equal(got[3].cpu(), want[3])
     for g, w in zip(got[:3], want[:3]):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-9)
+
+
+# -- wall times as captured CUDA graphs (core/signature.py) ------------------
+#
+# A replay must compute what an eager call computes on the same inputs:
+# integers exactly; floats to rtol=1e-5, atol=1e-6, since index_add_'s f32
+# atomics (PageRank, the graph and statistics motifs) land in another order
+# on every run and cuBLAS may pick another algorithm on the capture's
+# stream.
+
+#: small P for one node of every motif variant (weight 2: the repeat loop)
+CAPTURE_P = dict(data_size=1 << 12, chunk_size=64, num_tasks=2, batch_size=4,
+                 height=8, width=8, channels=4, weight=2.0)
+CAPTURE_VARIANTS = [(m, v) for m in sorted(MOTIFS) for v in MOTIFS[m].variants]
+#: the steps at small scales; TeraSort's bincount sizes its output from the
+#: data, a host read no capture allows
+STEP_SCALES = {"kmeans": 0.05, "terasort": 0.01, "pagerank": 0.05,
+               "alexnet": 8 / 128, "inception_v3": 4 / 32}
+
+
+def _assert_replays_equal(got, want, what: str) -> None:
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.uint32 import bits
+
+    gl, wl = tree_leaves(got), tree_leaves(want)
+    assert len(gl) == len(wl), what
+    for i, (g, w) in enumerate(zip(gl, wl)):
+        if not isinstance(w, torch.Tensor):
+            continue
+        if w.dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6,
+                                       msg=f"{what} leaf {i}")
+        else:
+            assert torch.equal(bits(g), bits(w)), f"{what} leaf {i}"
+
+
+@pytest.mark.cuda
+def test_cuda_captured_kmeans_step_replays_to_the_eager_outputs(cuda_device):
+    from repro_torch.core.signature import CapturedGraph, timed_wall
+    from repro_torch.workloads import WORKLOADS
+
+    w = WORKLOADS["kmeans"]
+    args = w.inputs(0, STEP_SCALES["kmeans"], device=cuda_device)
+    want = w.step(*args)
+    with CapturedGraph(lambda: w.step(*args), device=cuda_device) as graph:
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            _assert_replays_equal(graph.outputs, want, "kmeans step")
+    seconds, timing = timed_wall(lambda: w.step(*args), device=cuda_device)
+    assert timing == {"mode": "graph"} and seconds > 0
+
+
+@pytest.mark.cuda
+def test_cuda_a_host_read_is_not_captured_and_the_next_capture_works(
+        cuda_device):
+    from repro_torch.core.signature import (CapturedGraph, NotCaptured,
+                                            timed_wall)
+    from repro_torch.workloads import WORKLOADS
+
+    ts = WORKLOADS["terasort"]
+    targs = ts.inputs(0, STEP_SCALES["terasort"], device=cuda_device)
+    for _ in range(2):
+        with pytest.raises(NotCaptured, match="terasort.py"):
+            CapturedGraph(lambda: ts.step(*targs), device=cuda_device)
+        seconds, timing = timed_wall(lambda: ts.step(*targs),
+                                     device=cuda_device)
+        assert timing["mode"] == "eager" and seconds > 0
+        assert timing["reason"].startswith("not captured: ")
+        assert "terasort.py" in timing["reason"], timing
+    # eager work and a later capture in the same process are unharmed
+    x = torch.randn(4096, device=cuda_device)
+    assert torch.isfinite(torch.sort(x).values.sum()).item()
+    w = WORKLOADS["kmeans"]
+    args = w.inputs(0, STEP_SCALES["kmeans"], device=cuda_device)
+    want = w.step(*args)
+    with CapturedGraph(lambda: w.step(*args), device=cuda_device) as graph:
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_replays_equal(graph.outputs, want, "kmeans after a failure")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("failed", [False, True])
+def test_cuda_a_closed_capture_gives_its_memory_back(cuda_device, failed):
+    """A graph's pool goes back to the device once the graph is closed or
+    its capture failed, so a run of captures does not pile up their pools
+    and hold the card: after three captures of the step at full scale,
+    less than half of the most the card held during them stays reserved
+    (a reset alone kept all of it)."""
+    from repro_torch.core.signature import CapturedGraph, NotCaptured
+    from repro_torch.workloads import WORKLOADS
+
+    name = "terasort" if failed else "kmeans"
+    w = WORKLOADS[name]
+    args = w.inputs(0, 1.0, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    before = torch.cuda.memory_reserved(cuda_device)
+    for _ in range(3):
+        if failed:
+            with pytest.raises(NotCaptured):
+                CapturedGraph(lambda: w.step(*args), device=cuda_device)
+            continue
+        with CapturedGraph(lambda: w.step(*args), device=cuda_device) as g:
+            g.replay()
+            torch.cuda.synchronize()
+    held = torch.cuda.max_memory_reserved(cuda_device) - before
+    kept = torch.cuda.memory_reserved(cuda_device) - before
+    assert held > 0 and kept < held / 2, (kept, held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(STEP_SCALES))
+def test_cuda_workload_steps_are_captured_but_terasorts(cuda_device, name):
+    from repro_torch.core.signature import CapturedGraph, timed_wall
+    from repro_torch.workloads import WORKLOADS
+
+    w = WORKLOADS[name]
+    args = w.inputs(0, STEP_SCALES[name], device=cuda_device)
+    seconds, timing = timed_wall(lambda: w.step(*args), device=cuda_device)
+    if name == "terasort":
+        assert timing["mode"] == "eager" and "terasort.py" in \
+            timing["reason"], timing
+        return
+    assert timing == {"mode": "graph"}, timing
+    want = w.step(*args)
+    with CapturedGraph(lambda: w.step(*args), device=cuda_device) as graph:
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_replays_equal(graph.outputs, want, f"{name} step")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("substrate", ["torch", "hopper"])
+@pytest.mark.parametrize("motif,variant", CAPTURE_VARIANTS)
+def test_cuda_every_variant_eval_form_is_captured(cuda_device, motif,
+                                                   variant, substrate):
+    """Each variant's eval form (its inputs drawn inside, from generators
+    the capture registers) replays to the eager run's outputs."""
+    from repro_torch.core.motifs import PVector
+    from repro_torch.core.proxy_graph import MotifNode, ProxyBenchmark
+    from repro_torch.core.signature import CapturedGraph, timed_wall
+
+    p = PVector(substrate=substrate, **CAPTURE_P)
+    pb = ProxyBenchmark("one", (MotifNode("n0", motif, variant, p),))
+    fn, vals = pb.build_eval_fn(cuda_device), pb.lifted_values(cuda_device)
+    want = fn(0, vals)
+    with CapturedGraph(lambda: fn(0, vals), device=cuda_device) as graph:
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            _assert_replays_equal(graph.outputs, want, f"{motif}/{variant}")
+    assert timed_wall(lambda: fn(0, vals), device=cuda_device)[1] == {
+        "mode": "graph"}
+
+
+@pytest.mark.cuda
+def test_cuda_store_entries_record_graph_timing(cuda_device, tmp_path):
+    """A captured engine's entry says it was captured; one rewritten as
+    the eager-timing store version wrote it is a miss."""
+    import json
+
+    from repro_torch.core import EvalSession, ProxyStore
+    from repro_torch.core.motifs import PVector
+    from repro_torch.core.proxy_graph import MotifNode, ProxyBenchmark
+    from repro_torch.core.store import (_payload_checksum, canonical_key,
+                                        key_digest)
+
+    pb = ProxyBenchmark("one", (MotifNode(
+        "n0", "sort", "quick", PVector(substrate="hopper", **CAPTURE_P)),))
+    session = EvalSession(run=True, seed=0, device=cuda_device,
+                          store=ProxyStore(str(tmp_path)))
+    session.evaluate(pb)
+    assert session.signature_of(pb).timing == {"mode": "graph"}
+    key = session.cache.store_key(session.cache.key_for(pb))
+    path = session.store._sig_path(key_digest(canonical_key(key)))
+    with open(path) as f:
+        doc = json.load(f)
+    assert doc["payload"]["signature"]["timing"] == {"mode": "graph"}
+    doc["version"] = 1
+    del doc["payload"]["signature"]["timing"]
+    doc["checksum"] = _payload_checksum(doc["payload"])
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    fresh = EvalSession(run=True, seed=0, device=cuda_device,
+                        store=ProxyStore(str(tmp_path)))
+    fresh.evaluate(pb)
+    assert (fresh.stats()["compiles"], fresh.stats()["store_invalid"]) == (
+        1, 1)
+    assert fresh.signature_of(pb).timing == {"mode": "graph"}

@@ -52,7 +52,7 @@ def test_main_writes_the_reference_keys(tmp_path, capsys):
     doc, out = _run(tmp_path, "shared", "--iters", "2")
     assert trepro.missing_keys(doc) == []
     (rec,) = doc["workloads"]
-    assert set(rec) == set(trepro.RECORD_KEYS)
+    assert set(rec) == set(trepro.RECORD_KEYS + trepro.EXTRA_RECORD_KEYS)
     assert rec["workload"] == "kmeans" and rec["scale"] == 0.005
     assert rec["iterations"] <= 2 and len(rec["trace"]) == rec["iterations"]
     assert 0.0 <= rec["mean_accuracy"] <= 1.0
@@ -96,3 +96,16 @@ def test_the_benchmark_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trepro.main([])
+
+
+@pytest.mark.parametrize("share", [[], ["--no-share"]])
+def test_substrate_flag_puts_every_proxy_node_on_it(tmp_path, capsys,
+                                                    share):
+    doc, _ = _run(tmp_path, "hopper", "--iters", "0", "--substrate",
+                  "hopper", *share)
+    (rec,) = doc["workloads"]
+    nodes = json.loads(rec["proxy_json"])["nodes"]
+    assert nodes and {n["p"]["substrate"] for n in nodes} == {"hopper"}
+    assert rec["real_timing"]["mode"] == rec["proxy_timing"]["mode"] == \
+        "eager"
+    assert "eager/eager" in capsys.readouterr().out

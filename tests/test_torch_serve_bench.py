@@ -22,17 +22,28 @@ ROOT = Path(__file__).resolve().parents[1]
 
 @pytest.fixture(scope="module")
 def quick_run(tmp_path_factory):
-    """One ``--quick --check --trace`` run with a store, on the CPU."""
+    """One ``--quick --check --trace`` run with a store, on the CPU, and
+    each trace export as ``(hub, spans committed at the export)``."""
+    from repro_torch.runtime.telemetry import Telemetry
+
     d = tmp_path_factory.mktemp("serve")
     out, trace = d / "serve_bench.json", d / "trace.json"
-    rc = serve_bench.main(["--quick", "--check", "--store", str(d / "store"),
-                           "--trace", str(trace), "--device", "cpu",
-                           "--out", str(out)])
-    return rc, json.loads(out.read_text()), trace
+    exports, export = [], Telemetry.export_trace
+
+    def recorded(hub, *a, **kw):
+        exports.append((hub, hub._committed))
+        return export(hub, *a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Telemetry, "export_trace", recorded)
+        rc = serve_bench.main(["--quick", "--check", "--store",
+                               str(d / "store"), "--trace", str(trace),
+                               "--device", "cpu", "--out", str(out)])
+    return rc, json.loads(out.read_text()), trace, exports
 
 
 def test_quick_check_exits_zero(quick_run):
-    rc, doc, _ = quick_run
+    rc, doc, *_ = quick_run
     assert doc["check"]["failures"] == []
     assert rc == 0
     assert doc["backend"] == "cpu" and doc["config"]["substrate"] == "torch"
@@ -41,8 +52,20 @@ def test_quick_check_exits_zero(quick_run):
     assert doc["tune"]["classes"]["tune"]["count"] == 1
 
 
+def test_the_trace_is_the_runs_not_the_overhead_probes(quick_run):
+    """The trace is exported before the overhead probe: the probe's
+    enabled windows (reps x rounds batches, grown until a window lasts
+    ``OVERHEAD_WINDOW_S``) would otherwise push the run's serve spans out
+    of the hub's bounded ring."""
+    _, doc, _, exports = quick_run
+    ((hub, at_export),) = exports
+    over = doc["trace"]["overhead"]
+    assert hub._committed - at_export >= over["reps"] * over["rounds"]
+    assert doc["trace"]["spans_dropped"] == 0
+
+
 def test_the_probe_warm_starts_on_the_port_alone(quick_run):
-    _, doc, _ = quick_run
+    _, doc, *_ = quick_run
     probe = doc["warm_start_probe"]
     assert probe["compiles"] == 0
     assert probe["store_hits"] == probe["classes"] == 4
@@ -110,7 +133,7 @@ def test_doc_keys_are_the_reference_benchmarks():
 
 
 def test_the_document_lacks_no_reference_key(quick_run):
-    _, doc, _ = quick_run
+    _, doc, *_ = quick_run
     assert serve_bench.missing_keys(doc) == []
     assert set(serve_bench.DOC_KEYS[""]) <= set(doc)
     short = dict(doc, warm={k: v for k, v in doc["warm"].items()
