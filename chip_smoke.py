@@ -79,6 +79,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    if case A never launched matmul, row moments or the bitonic sort, case
    B (whose TeraSort alone reaches a kernel) never launched the sort, or
    a document lacks a key of the reference's;
+6f. population (needs main): the population form.  (a) each main-path
+   op's vmapped form (``torch.func.vmap`` through its batching rule) at
+   2 and 32 lanes built from the inputs phase 3's tuned proxy gives it
+   (lane 0 the input, every other lane a seeded permutation of its
+   elements, so neighbouring lanes must differ by more than the
+   tolerance; matmul with lanes on both operands, the kernel's lane
+   axis, and on x alone, folded into M), one launch a call, against a
+   per-lane loop of its plain version (sort exact, else
+   ``rtol=atol=1e-3``), timed beside
+   the loop and one library call (``torch.bmm``, ``torch.var_mean``,
+   ``torch.sort`` of the int32 image); (b) ``population_runtime`` on a
+   ``run=True`` engine over the tuned proxy's impact batch
+   (``tuner_bench.impact_batch``): every class must vmap, every lane
+   equal its candidate's eval form on the card, and each kernel launch
+   as often a chunk as one lane launches it; its wall is logged beside
+   the batched engine's per-class walls; (c) ``tuner_bench``: single
+   and sweep with ``--run --substrate hopper`` (the sweep with
+   ``--workers 1`` and auto); any gate fails the run.  Its priors mode
+   is not run (``TUNER_BENCH_RUNS``);
 6d. serve (needs paper_repro): the proxy server, counters zeroed just
    before and read after the last server's shutdown.  First the port's
    ``serve_bench --check`` at the reference's defaults (8 shape classes,
@@ -109,8 +128,10 @@ three with their launches over phase 7 and their full-width phase-2
 times, each with its device ms, and each with its launches over every
 workload of phase 6b and its times at those workloads' shapes, its
 launches over each workload of phase 6c, its launches over phase 6d
-as ``serve_launches``, and its launches over each case of phase 6e as
-``case_studies_launches``), the
+as ``serve_launches``, its launches over each case of phase 6e as
+``case_studies_launches``, and, for the first three, its launches over
+one call a chunk of phase 6f (b) as ``population_launches`` and its
+phase 6f (a) rows as ``lane_forms``), the
 card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: the script
 exits non-zero without a CUDA device, and outside a checkout.
@@ -279,6 +300,20 @@ def bound(kind: str, args) -> tuple:
     """(bound_ms, bound_by, bytes_ms) for one kernel call, from its
     inputs: bytes_ms is the byte time alone, which bound_ms takes when
     it is the larger."""
+    ops, nbytes, peak = work(kind, args)
+    return bound_of(ops / peak, nbytes / HBM_BYTES_PER_S)
+
+
+def bound_of(t_ops: float, t_bytes: float) -> tuple:
+    """(bound_ms, bound_by, bytes_ms) from the operations' and the bytes'
+    times in seconds."""
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", t_bytes * 1e3)
+
+
+def work(kind: str, args) -> tuple:
+    """(operations, bytes, peak operations a second) of one kernel call:
+    each input read once, each output written once."""
     import math
 
     if kind == "matmul":
@@ -323,9 +358,7 @@ def bound(kind: str, args) -> tuple:
         ops = float(n) * math.log2(block)
         nbytes = (n + n_pad) * x.element_size()
         peak = PEAK_FLOPS["float32"]
-    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops > t_bytes else "bytes", t_bytes * 1e3)
+    return ops, nbytes, peak
 
 
 # ---------------------------------------------------------------------------
@@ -591,6 +624,10 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
     row["device_ms"], row["device_kernels"] = device_ms(torch, call, iters)
     row["bound_ms"], row["bound_by"], row["bytes_ms"] = bound(kind, args)
     return row
+
+
+def fmt_ms(v) -> str:
+    return "n/a" if v is None else f"{v:.4f}"
 
 
 def fmt_row(r: dict) -> str:
@@ -910,7 +947,8 @@ def check_report(name: str, pb, rep, seconds: float, counts: dict,
 
 def phase_main_all(torch, dev) -> list:
     """The main path, its checks, its kernels at its shapes (the kernels
-    JSON's first three rows) and its traces."""
+    JSON's first three rows) and its traces; returns the rows and the
+    tuned proxy."""
     from repro_torch.workloads import WORKLOADS
 
     pb, rep, counts, args = phase_main(torch, dev)
@@ -918,7 +956,7 @@ def phase_main_all(torch, dev) -> list:
     entries = phase_main_shapes(torch, dev, pb, counts)
     trace_pair(torch, dev, "kmeans", lambda: WORKLOADS["kmeans"].step(*args),
                pb)
-    return entries
+    return entries, pb
 
 
 def phase_main(torch, dev):
@@ -1586,22 +1624,302 @@ def phase_case_studies(torch, dev, work: Path) -> dict:
     return launches
 
 
+#: the population phase's lane counts: two, and the evaluator's
+#: ``DEFAULT_EVAL_BATCH``, the most lanes one population call takes
+LANES = (2, 32)
+#: lane forms against the loop of their plain versions (sort exact)
+LANE_TOL = dict(rtol=1e-3, atol=1e-3)
+#: integer outputs a population lane may not share with its eval form:
+#: argmin/argmax over distances whose batched f32 sums can round apart at
+#: a near-tie (as ``check_substrates`` allows between substrates)
+LANE_INT_FRACTION = 1e-3
+#: tuner_bench's runs in the population phase, each failing the run on
+#: any gate: single and sweep with ``--run`` on the kernels (the sweep
+#: with one profiling thread and with the default, auto).  The priors
+#: mode is not run: on the port's profile its gate does not hold at the
+#: reference's setup (ROADMAP queue 3)
+TUNER_BENCH_RUNS = (
+    ("--run", "--substrate", "hopper"),
+    ("--run", "--substrate", "hopper", "--sweep", "--workers", "1"),
+    ("--run", "--substrate", "hopper", "--sweep"),
+)
+
+
+def lane_bound(kind: str, args, lanes: int, in_dims=None) -> tuple:
+    """``bound`` of ``lanes`` lanes of one call: each lane's operations,
+    and the bytes of each batched operand and of the outputs once a lane;
+    an operand every lane shares (``in_dims`` None there) is read once."""
+    ops, nbytes, peak = work(kind, args)
+    shared = sum(a.numel() * a.element_size()
+                 for a, d in zip(args, in_dims or [0] * len(args))
+                 if d is None)
+    return bound_of(lanes * ops / peak,
+                    (lanes * (nbytes - shared) + shared) / HBM_BYTES_PER_S)
+
+
+def lane_row(torch, kind: str, lanes: int, args, dims=None) -> dict:
+    """One kernel op's vmapped form on ``lanes`` lanes built from the main
+    path's inputs ``args``, in one launch, against a per-lane loop of its
+    plain version, timed beside the loop and one library call on the same
+    lanes.  Lane 0 is the recorded input and lane j a permutation of its
+    elements drawn from seed j, so the lanes are independent: the check
+    fails unless neighbouring lanes' plain results differ by more than
+    the tolerance, and a lane that returned another lane's result would
+    fail it."""
+    from repro_torch.core.evaluator import no_vmap_fallback
+    from repro_torch.kernels import bitonic_sort, ops, ref
+    from repro_torch.uint32 import bits, full, reinterpret
+
+    def lanes_of(t):
+        flat = bits(t).reshape(-1)
+        out = [flat]
+        for j in range(1, lanes):
+            g = torch.Generator(device=t.device).manual_seed(j)
+            out.append(flat[torch.randperm(flat.numel(), generator=g,
+                                           device=t.device)])
+        return reinterpret(torch.stack(out), t.dtype).view(lanes, *t.shape)
+
+    def vmapped(fn, *a, in_dims=0):
+        with no_vmap_fallback():
+            return torch.func.vmap(fn, in_dims=in_dims)(*a)
+
+    row = {"kernel": kind, "lanes": lanes}
+    if kind == "matmul":
+        x, y = args
+        xs = lanes_of(x)
+        ys = lanes_of(y) if dims[1] == 0 else y
+        row["in_dims"] = list(dims)
+        call = lambda: vmapped(ops.matmul, xs, ys, in_dims=dims)  # noqa
+        ylane = (lambda j: ys[j]) if dims[1] == 0 else (lambda j: ys)
+        loop = lambda: [ref.matmul(xs[j], ylane(j))  # noqa: E731
+                        for j in range(lanes)]
+        yb = ys if dims[1] == 0 else ys.expand(lanes, *ys.shape)
+        library = lambda: torch.bmm(xs, yb)  # noqa: E731
+        one = (x, y)
+    elif kind == "row_moments":
+        (x,) = args
+        xs = lanes_of(x)
+        call = lambda: vmapped(ops.row_moments, xs)  # noqa: E731
+        loop = lambda: [ref.row_moments(xs[j]) for j in range(lanes)]  # noqa
+        library = lambda: torch.var_mean(xs, dim=-1, correction=0)  # noqa
+        one = (x,)
+    else:
+        x, block = args
+        xs = lanes_of(x)
+        sentinel = bitonic_sort.SENTINELS[x.dtype]
+        call = lambda: vmapped(  # noqa: E731
+            lambda v: bitonic_sort.bitonic_sort_blocks(v, block=block), xs)
+        loop = lambda: [ref.sort_blocks(xs[j], block, sentinel)  # noqa
+                        for j in range(lanes)]
+        n = x.shape[0]
+        padded = torch.cat([xs, full((lanes, (-n) % block), sentinel,
+                                     x.dtype, x.device)], 1)
+        if x.dtype == torch.uint32:  # the order-preserving int32 image
+            padded = padded.view(torch.int32) ^ -(1 << 31)
+        library = lambda: torch.sort(padded.view(-1, block), dim=-1)  # noqa
+        one = (x, block)
+    row["shape"] = [list(a.shape) if hasattr(a, "shape") else a
+                    for a in one]
+    row["dtype"] = str(one[0].dtype).replace("torch.", "")
+    torch.cuda.synchronize()
+    before = ops.launch_counts()[kind]
+    got = call()
+    torch.cuda.synchronize()
+    row["launches_a_call"] = ops.launch_counts()[kind] - before
+    if row["launches_a_call"] != 1:
+        raise fail(f"{kind} over {lanes} lanes took "
+                   f"{row['launches_a_call']} launches, not one")
+    want = [[w] if isinstance(w, torch.Tensor) else list(w)
+            for w in loop()]
+    err = 0.0
+    for j in range(lanes):
+        gj = [g[j] for g in got] if isinstance(got, tuple) else [got[j]]
+        for g, w in zip(gj, want[j]):
+            if kind == "bitonic_sort":
+                if not torch.equal(g, w):
+                    raise fail(f"bitonic_sort lane {j} of {lanes} differs "
+                               f"from its plain version")
+            else:
+                err = max(err, (g.float() - w.float()).abs().max().item())
+                torch.testing.assert_close(g.float(), w.float(), **LANE_TOL)
+        if j and all(
+                torch.equal(a, b) if kind == "bitonic_sort" else
+                torch.allclose(a.float(), b.float(), **LANE_TOL)
+                for a, b in zip(want[j], want[j - 1])):
+            raise fail(f"{kind} lanes {j - 1} and {j} agree within the "
+                       f"tolerance: the check cannot tell them apart")
+    row["max_abs_err"] = err
+    row["ms"] = time_ms(torch, call, 20)
+    row["plain_ms"] = time_ms(torch, loop, 5, warmup=1)
+    row["library_ms"] = time_ms(torch, library, 20)
+    row["device_ms"] = device_ms(torch, call, 20)[0]
+    row["bound_ms"], row["bound_by"], _ = lane_bound(
+        kind, one, lanes, dims if kind == "matmul" else None)
+    return row
+
+
+def phase_population(torch, dev, pb, work: Path) -> dict:
+    """The population form on the card.
+
+    (a) each of the three main-path ops' vmapped forms at ``LANES`` lanes
+    built from the inputs the tuned K-means proxy gives it (lane 0 the
+    input, every other lane a seeded permutation of it; matmul with the
+    lanes on x and y, the kernel's lane axis, and on x alone, folded into
+    M), one launch a call, against a per-lane loop of its plain version,
+    with the loop's and one library call's times.
+
+    (b) ``population_runtime`` on a ``run=True`` engine over the impact
+    batch of the tuned proxy (``tuner_bench.impact_batch``): classes,
+    builds, modes and wall logged beside the batched engine's per-class
+    walls for the same batch; then each class's chunk once more, counters
+    zeroed: every lane against its candidate's eval form on the card, and
+    each kernel launched as often as one lane of the class launches it.
+
+    (c) ``tuner_bench`` as ``TUNER_BENCH_RUNS`` says, failing on any
+    gate: single and sweep with ``--run --substrate hopper`` (the sweep
+    with ``--workers 1`` and with the default, auto).  Returns
+    ``{"lane_forms": rows, "population_launches": counts over (b)}``."""
+    from repro_torch.bench import tuner_bench
+    from repro_torch.core.evaluator import BatchEvaluator, _key_attr
+    from repro_torch.kernels import ops
+
+    # (a) -------------------------------------------------------------------
+    rec = _Recorder(torch)
+    with rec.mode:
+        pb.build_eval_fn(dev)(0, pb.lifted_values(dev))
+    rows = []
+    for kind in MAIN_PATH_KERNELS:
+        if kind not in rec.calls:
+            raise fail(f"the tuned kmeans proxy gave {kind} no input")
+        args = rec.calls[kind][1]
+        args = tuple(args[:2]) if kind == "matmul" else (
+            (args[0],) if kind == "row_moments" else tuple(args))
+        for lanes in LANES:
+            for dims in (((0, 0), (0, None)) if kind == "matmul"
+                         else (None,)):
+                r = lane_row(torch, kind, lanes, args, dims)
+                log(f"lane form {kind} x{lanes}"
+                    + (f" in_dims {dims}" if dims else "")
+                    + f" at {r['shape']} {r['dtype']}: ms={r['ms']:.4f} "
+                    f"device_ms={fmt_ms(r['device_ms'])} "
+                    f"plain_ms={r['plain_ms']:.4f} (loop) library_ms="
+                    f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                    f"({r['bound_by']}) max_abs_err={r['max_abs_err']:.3g}")
+                rows.append(r)
+
+    # (b) -------------------------------------------------------------------
+    batch = tuner_bench.impact_batch(pb)
+    engine = BatchEvaluator(run=True, device=dev)
+    t0 = time.perf_counter()
+    engine.evaluate_batch(batch)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    classes = {engine.cache.key_for(c): c for c in batch}
+    walls = [engine.signature_of(c).wall_time for c in classes.values()]
+    t0 = time.perf_counter()
+    pop = engine.population_runtime(batch)
+    torch.cuda.synchronize()
+    pop_s = time.perf_counter() - t0
+    log(f"population: {pop['candidates']} candidates of the impact batch "
+        f"in {pop['classes']} class(es), {pop['compiles']} build(s), wall "
+        f"{pop['wall_time'] * 1e3:.4f} ms ({pop_s:.1f} s with builds and "
+        f"captures); the batched engine: {len(classes)} shape classes, "
+        f"per-class walls summing to {sum(walls) * 1e3:.4f} ms "
+        f"({batched_s:.1f} s with profiles)")
+    for key, mode in pop["modes"].items():
+        log(f"  class {key}: {json.dumps(mode)}")
+    lanes_only = {k: m for k, m in pop["modes"].items()
+                  if m["mode"] != "vmap"}
+    if lanes_only:
+        raise fail(f"population classes ran lane by lane: "
+                   f"{json.dumps(lanes_only)}")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    totals = dict.fromkeys(MAIN_PATH_KERNELS, 0)
+    lanes_of = {}
+    for chunk in engine.population_chunks(batch):
+        before = ops.launch_counts()
+        out = chunk.runner(0)()
+        torch.cuda.synchronize()
+        mid = ops.launch_counts()
+        chunk.entry.fn(0, chunk.vals[0], max_reps=chunk.caps)  # one lane
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        name = _key_attr(chunk.key)
+        for k in MAIN_PATH_KERNELS:
+            vm, one = mid[k] - before[k], after[k] - mid[k]
+            if vm != one:
+                raise fail(f"class {name}: {k} launched {vm} times over "
+                           f"{len(chunk.members)} lanes, one lane {one}")
+            totals[k] += vm
+        for j, c in enumerate(chunk.members):
+            want = c.build_eval_fn(dev)(0, c.lifted_values(dev))
+            for nid, leaves in want.items():
+                for leaf, w in leaves.items():
+                    g = out[nid][leaf][j]
+                    if w.dtype.is_floating_point:
+                        torch.testing.assert_close(g, w, **LANE_TOL)
+                    else:
+                        frac = (g != w).float().mean().item()
+                        if frac > LANE_INT_FRACTION:
+                            raise fail(f"class {name} lane {j}: "
+                                       f"{nid}.{leaf} differs on {frac:.2%}")
+        lanes_of[name] = lanes_of.get(name, 0) + len(chunk.members)
+    for name, n in lanes_of.items():
+        log(f"  class {name}: {n} lanes equal their eval forms")
+    log(f"population launches over one call a chunk: {json.dumps(totals)}")
+    never = [k for k, v in totals.items() if v == 0]
+    if never:
+        raise fail(f"the population form never launched {never}")
+
+    # (c) -------------------------------------------------------------------
+    for mode in TUNER_BENCH_RUNS:
+        out = work / "tuner_bench.json"
+        t0 = time.perf_counter()
+        rc = tuner_bench.main(["--device", str(dev), "--out", str(out),
+                               *mode])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise fail(f"tuner_bench {' '.join(mode)} returned {rc}")
+        doc = json.loads(out.read_text())
+        if doc["mode"] == "single":
+            detail = (f"serial_iter_s {doc['serial_iter_s']} batched_iter_s "
+                      f"{doc['batched_iter_s']} population "
+                      f"{json.dumps(doc['population'])} qualification "
+                      f"{json.dumps(doc['qualification'])}")
+        else:
+            detail = (f"separate {json.dumps(doc['separate'])} shared "
+                      f"wall_s {doc['shared']['wall_s']} compiles "
+                      f"{doc['shared']['compiles']} cross_workload_hits "
+                      f"{doc['shared']['cross_workload_hits']} "
+                      f"compile_workers_max "
+                      f"{doc['shared']['stats']['compile_workers_max']}")
+        log(f"tuner_bench {' '.join(mode)}: {seconds:.1f} s, {detail}")
+    return {"lane_forms": rows, "population_launches": totals}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,kernels,main,workloads,paper_repro,"
-                            "case_studies,serve,bench",
+                            "case_studies,population,serve,bench",
                     help="comma list of env, kernels, main (main includes "
                          "the checks and main-path shapes), workloads (the "
                          "other four workloads), paper_repro (the sweep of "
                          "all five from BASE_P), case_studies (the paper's "
-                         "§IV), serve (the proxy server; needs "
-                         "paper_repro), bench (needs kernels)")
+                         "§IV), population (the population form and "
+                         "tuner_bench; needs main), serve (the proxy "
+                         "server; needs paper_repro), bench (needs "
+                         "kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     if "bench" in phases and "kernels" not in phases:
         ap.error("the bench phase reports the kernels phase's full-width "
                  "times: add kernels")
+    if "population" in phases and "main" not in phases:
+        ap.error("the population phase runs the main path's tuned proxy's "
+                 "impact batch: add main")
     if "serve" in phases and "paper_repro" not in phases:
         ap.error("the serve phase serves the paper_repro phase's proxies "
                  "from its store: add paper_repro")
@@ -1635,13 +1953,14 @@ def main(argv=None) -> int:
     timed("env", phase_env, torch, dev)  # always: every phase's set-up
     kernel_rows = (timed("kernels", phase_kernels, torch, dev)
                    if "kernels" in phases else [])
-    entries = []
+    entries, kmeans_pb = [], None
     if "main" in phases:
-        entries = timed("main", phase_main_all, torch, dev)
+        entries, kmeans_pb = timed("main", phase_main_all, torch, dev)
     launches, path_rows = {}, []
     if "workloads" in phases:
         launches, path_rows = timed("workloads", phase_workloads, torch, dev)
     paper_launches, serve_launches, case_launches = {}, {}, {}
+    population = {"lane_forms": [], "population_launches": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         work = Path(work)
         if "paper_repro" in phases:
@@ -1651,6 +1970,9 @@ def main(argv=None) -> int:
         if "case_studies" in phases:
             case_launches = timed("case_studies", phase_case_studies, torch,
                                   dev, work)
+        if "population" in phases:
+            population = timed("population", phase_population, torch, dev,
+                               kmeans_pb, work)
         if "serve" in phases:
             serve_launches = timed("serve", phase_serve, torch, dev, work,
                                    proxies)
@@ -1664,6 +1986,14 @@ def main(argv=None) -> int:
         e["serve_launches"] = serve_launches.get(e["name"])
         e["case_studies_launches"] = {c: n[e["name"]]
                                       for c, n in case_launches.items()}
+        e["population_launches"] = population["population_launches"].get(
+            e["name"])
+        e["lane_forms"] = [
+            {k: r.get(k) for k in ("lanes", "in_dims", "shape", "dtype",
+                                   "launches_a_call", "max_abs_err", "ms",
+                                   "device_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")}
+            for r in population["lane_forms"] if r["kernel"] == e["name"]]
         e["workload_shapes"] = [
             {k: r[k] for k in ("workload", "shape", "dtype", "max_abs_err",
                                "ms", "device_ms", "plain_ms", "bound_ms",

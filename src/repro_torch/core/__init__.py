@@ -1,6 +1,7 @@
 """The paper's contribution — data motifs -> proxy benchmark generation —
 ported to PyTorch.  Exports the reference's names as far as they are
-ported (not the cluster layer, ``PopulationRegistry`` or the HLO parser)."""
+ported (of the cluster layer only its mesh-shape arithmetic; not the HLO
+parser)."""
 from repro_torch.core.accuracy import (  # noqa: F401
     COLLECTIVE_METRICS,
     AccuracyReport,
@@ -8,6 +9,18 @@ from repro_torch.core.accuracy import (  # noqa: F401
     deviations,
     eq3_accuracy,
     normalized_vector,
+)
+from repro_torch.core.cluster import (  # noqa: F401
+    QUANTIZED_FIELDS,
+    ClusterError,
+    axis_quantum,
+    batch_quantum,
+    make_quantizer,
+    mesh_structural_key,
+    mesh_task_quantum,
+    model_quantum,
+    quantize_proxy,
+    trend_consistency,
 )
 from repro_torch.core.decompose import (  # noqa: F401
     COLLECTIVE_TO_MOTIF,
@@ -20,6 +33,7 @@ from repro_torch.core.evaluator import (  # noqa: F401
     BatchEvaluator,
     EvalSession,
     ExecutableCache,
+    PopulationRegistry,
     serial_evaluate_batch,
 )
 from repro_torch.core.generator import (  # noqa: F401

@@ -22,17 +22,31 @@ profiled for earlier ones.  ``session.workload(name)`` tags cache traffic
 per workload and counts **cross-workload hits** — cache hits served by
 an entry another workload profiled.  A :class:`~repro_torch.core.store.
 ProxyStore` behind the cache makes the warm start survive the process.
+Shape classes missing from the cache are profiled in a pool of threads
+(``compile_workers``; the finalize and any capture stay serial after it).
 
-Not ported: the reference's population form (``PopulationRegistry``,
-``population_runtime``), its compile-worker pool, and its mesh and rules
-arguments.
+The *population form* (:meth:`ProxyBenchmark.build_lifted_fn`) lifts the
+weight too: :meth:`BatchEvaluator.population_runtime` groups candidates by
+their weight-free shape class and runs each class's members through
+``torch.func.vmap`` of one population-form runner, kept in a
+:class:`PopulationRegistry`, ``max_batch`` lanes a call.  A class whose
+population form cannot be vmapped — an op with no batching rule, which
+functorch would otherwise run once a lane in silence, or a host read —
+runs lane by lane and says why.
+
+Not ported yet: the reference's mesh and rules arguments.
 """
 from __future__ import annotations
 
+import os
+import re
+import threading
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -45,7 +59,8 @@ from repro_torch.core.motifs.base import (
     SUBSTRATES,
 )
 from repro_torch.core.proxy_graph import ProxyBenchmark
-from repro_torch.core.signature import Signature, profile_call, timed_wall
+from repro_torch.core.signature import (Signature, profile_call, timed_wall,
+                                        where_raised)
 from repro_torch.core.store import canonical_key, device_key, key_digest
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -130,12 +145,15 @@ class ExecutableCache:
         self.evictions = 0
         self.scope: Optional[str] = None
         self.cross_scope_hits = 0
+        # compile_entry runs in the engine's compile workers
+        self._compiles_lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self._entries)
 
-    def key_for(self, pb: ProxyBenchmark) -> Tuple:
-        return pb.shape_signature()
+    def key_for(self, pb: ProxyBenchmark,
+                include_repeats: bool = True) -> Tuple:
+        return pb.shape_signature(include_repeats)
 
     def store_key(self, sig_key: Tuple) -> Tuple:
         """The persistent key of an in-memory key: the device key
@@ -235,7 +253,7 @@ class ExecutableCache:
     def compile_entry(self, pb: ProxyBenchmark, seed: int) -> CacheEntry:
         """Profile one shape class's eval form once (no caching): build
         its runner (span ``eval.trace``), then one profiled dispatch run
-        (span ``eval.compile``)."""
+        (span ``eval.compile``).  Safe to call from several threads."""
         tel = self.telemetry
         kd = _key_attr(self.key_for(pb)) if tel.enabled else ""
         with tel.span("eval.trace", key=kd):
@@ -243,7 +261,8 @@ class ExecutableCache:
             fn = pb.build_eval_fn(self.device)
         with tel.span("eval.compile", key=kd):
             sig = profile_call(fn, seed, vals)
-        self.compiles += 1
+        with self._compiles_lock:
+            self.compiles += 1
         return CacheEntry(fn=fn, lifted_example=vals, signature=sig,
                           key_attr=kd or None)
 
@@ -257,22 +276,157 @@ class ExecutableCache:
         return s
 
 
+class PopulationEntry:
+    """One weight-free shape class's population form: the one-lane runner
+    ``fn(seed, lifted, max_reps)``, its ``torch.func.vmap`` over the lanes
+    of ``lifted`` (the seed is shared, ``randomness="same"``: every lane
+    draws what its candidate's eval form draws), and ``mode``, set by the
+    first run: ``{"mode": "vmap"}``, or ``{"mode": "lanes", "reason":
+    "<op> at <file:line>"}`` when the vmapped call fails and the lanes
+    run one by one."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.vmapped = torch.func.vmap(fn, in_dims=(None, 0),
+                                       randomness="same")
+        self.mode: Optional[Dict[str, str]] = None
+
+    def runner(self, seed: int, vals: torch.Tensor,
+               rows: Sequence[Sequence[Tuple[float, ...]]]
+               ) -> Callable[[], Any]:
+        """A no-argument call of the whole chunk ``vals`` (lanes x nodes
+        x 4, built from ``rows``) in this class's mode, probing the mode
+        on the first call."""
+        caps = lane_caps(rows)
+
+        def run():
+            with no_vmap_fallback():
+                return self.vmapped(seed, vals, max_reps=caps)
+
+        if self.mode is None:
+            try:
+                run()
+                self.mode = {"mode": "vmap"}
+            except RuntimeError as exc:
+                self.mode = {"mode": "lanes", "reason": vmap_reason(exc)}
+        if self.mode["mode"] == "vmap":
+            return run
+        # lane by lane, each at its own repeat counts
+        own = [[int(n[0]) for n in r] for r in rows]
+        return lambda: [self.fn(seed, vals[j], max_reps=own[j])
+                        for j in range(len(rows))]
+
+
+def lane_caps(rows: Sequence[Sequence[Tuple[float, ...]]]) -> List[int]:
+    """Each node's loop length over a chunk's lifted rows (lanes x nodes,
+    the repeat count first): the largest repeat count of the lanes."""
+    return [int(max(r[i][0] for r in rows)) for i in range(len(rows[0]))]
+
+
+@dataclass
+class PopulationChunk:
+    """Up to ``max_batch`` candidates of one weight-free shape class, as
+    one population call takes them: the class's ``key`` and ``entry``,
+    the ``members``, their lifted ``rows`` and ``vals`` (the rows as a
+    lanes x nodes x 4 tensor on the device)."""
+
+    key: Tuple
+    entry: PopulationEntry
+    members: List[ProxyBenchmark]
+    rows: List[List[Tuple[float, ...]]]
+    vals: torch.Tensor
+
+    @property
+    def caps(self) -> List[int]:
+        return lane_caps(self.rows)
+
+    def runner(self, seed: int) -> Callable[[], Any]:
+        return self.entry.runner(seed, self.vals, self.rows)
+
+
+@contextmanager
+def no_vmap_fallback():
+    """Make an op with no batching rule raise under vmap instead of
+    reaching functorch's fallback, which runs it once a lane and only
+    warns."""
+    functorch = torch._C._functorch
+    was = functorch._is_vmap_fallback_enabled()
+    functorch._set_vmap_fallback_enabled(False)
+    try:
+        yield
+    finally:
+        functorch._set_vmap_fallback_enabled(was)
+
+
+_FALLBACK = re.compile(r"(\S+::\S+) hit the vmap fallback")
+
+
+def vmap_reason(exc: BaseException) -> str:
+    """Why a population form could not be vmapped: the op (or the first
+    line of the error) and where in this package it was called."""
+    text = str(exc).strip()
+    found = _FALLBACK.search(text)
+    what = found.group(1) if found else (text.splitlines() or [""])[0][:160]
+    return f"{what} at {where_raised(exc)}"
+
+
+class PopulationRegistry:
+    """LRU registry of population-form runners (:class:`PopulationEntry`),
+    keyed by the weight-free shape class ``shape_signature(False)``; one
+    registry is shared across a whole :class:`EvalSession`, so a class
+    built for one workload's population serves every later workload."""
+
+    def __init__(self, capacity: int = DEFAULT_EVAL_CACHE):
+        self.capacity = _clamp(capacity, EVAL_CACHE_BOUNDS)
+        self._fns: "OrderedDict[Tuple, PopulationEntry]" = OrderedDict()
+        self.hits = 0
+        self.builds = 0
+
+    def __len__(self) -> int:
+        return len(self._fns)
+
+    def get_or_build(self, class_key: Tuple,
+                     build: Callable[[], PopulationEntry]) -> PopulationEntry:
+        entry = self._fns.get(class_key)
+        if entry is not None:
+            self._fns.move_to_end(class_key)  # LRU, not FIFO
+            self.hits += 1
+            return entry
+        entry = build()
+        self._fns[class_key] = entry
+        while len(self._fns) > self.capacity:
+            self._fns.popitem(last=False)
+        self.builds += 1
+        return entry
+
+    def stats(self) -> Dict[str, int]:
+        return {"pop_hits": self.hits, "pop_builds": self.builds,
+                "pop_entries": len(self._fns)}
+
+
 class BatchEvaluator:
     """Evaluate candidate populations: dedup by shape class, profile once,
     cache.  Callable on one proxy (the tuner's ``EvalFn``) plus an
     ``evaluate_batch`` for whole impact-analysis batches; ``metrics``
     filters the returned vector the way ``proxy_metrics`` does.
 
-    Pass ``cache`` to share profiled state across evaluators, or use
-    :class:`EvalSession`, which owns one for a whole multi-workload run.
+    ``compile_workers=None`` (the default) sizes each batch's pool of
+    profiling threads to ``min(os.cpu_count(), missing)``; the
+    ``REPRO_COMPILE_WORKERS`` environment variable pins it.
+
+    Pass ``cache``/``pop_registry`` to share profiled state across
+    evaluators, or use :class:`EvalSession`, which owns both for a whole
+    multi-workload run.
     """
 
     def __init__(self, *, run: bool = True,
                  metrics: Optional[Sequence[str]] = None,
                  seed: int = 0,
                  cache: Optional[ExecutableCache] = None,
+                 pop_registry: Optional[PopulationRegistry] = None,
                  capacity: int = DEFAULT_EVAL_CACHE,
                  max_batch: int = DEFAULT_EVAL_BATCH,
+                 compile_workers: Optional[int] = None,
                  wall_iters: int = 5,
                  device: DeviceLike = None):
         self.run = run
@@ -285,7 +439,15 @@ class BatchEvaluator:
         # a run=True engine only accepts store entries with measured wall
         # time (and vice versa) — see ExecutableCache._store_lookup
         self.cache.need_wall = self.cache.need_wall or run
+        self.pop_registry = (pop_registry if pop_registry is not None
+                             else PopulationRegistry(self.cache.capacity))
         self.max_batch = _clamp(max_batch, EVAL_BATCH_BOUNDS)
+        if compile_workers is None:
+            env = os.environ.get("REPRO_COMPILE_WORKERS")
+            # 0 = auto: size each batch's pool to min(cpu_count, missing)
+            compile_workers = int(env) if env else 0
+        self.compile_workers = max(int(compile_workers), 0)
+        self.workers_used = 0
         self.wall_iters = wall_iters
         self.evals = 0
 
@@ -317,13 +479,40 @@ class BatchEvaluator:
     def _eval_chunk(self, pbs: Sequence[ProxyBenchmark]
                     ) -> List[Dict[str, float]]:
         sig_keys = [self.cache.key_for(pb) for pb in pbs]
-        entries: Dict[Tuple, CacheEntry] = {}
+        entries: Dict[Tuple, Optional[CacheEntry]] = {}
+        missing: List[Tuple[Tuple, ProxyBenchmark]] = []
         for sk, pb in zip(sig_keys, pbs):
-            if sk not in entries:
-                entries[sk] = self._entry(sk, pb)
+            if sk in entries:
+                continue
+            entries[sk] = self.cache.lookup(sk)  # None keeps batch order
+            if entries[sk] is None:
+                missing.append((sk, pb))
+
+        workers = self._effective_workers(len(missing))
+        if len(missing) > 1 and workers > 1:
+            with ThreadPoolExecutor(workers) as pool:
+                built = list(pool.map(
+                    lambda item: self.cache.compile_entry(item[1], self.seed),
+                    missing))
+        else:
+            built = [self.cache.compile_entry(pb, self.seed)
+                     for _, pb in missing]
+        for (sk, _), entry in zip(missing, built):
+            entries[sk] = self.cache.insert(sk, entry)
+
         for entry in entries.values():
             self._finalize(entry)
         return [self._filtered(entries[sk]) for sk in sig_keys]
+
+    def _effective_workers(self, n_missing: int) -> int:
+        """Profiling-pool width for one batch: the configured count, or
+        ``min(os.cpu_count(), n_missing)`` when auto (0).  The widest
+        used is the ``compile_workers_max`` gauge of :meth:`stats`."""
+        workers = self.compile_workers or (os.cpu_count() or 1)
+        effective = max(min(workers, n_missing), 1)
+        if n_missing > 0:
+            self.workers_used = max(self.workers_used, effective)
+        return effective
 
     def _entry(self, sk: Tuple, pb: ProxyBenchmark) -> CacheEntry:
         return self.cache.get_or_build(
@@ -360,9 +549,67 @@ class BatchEvaluator:
         self._finalize(entry)
         return entry.signature
 
+    # -- vmapped population execution ---------------------------------------
+    def population_runtime(self, pbs: Sequence[ProxyBenchmark],
+                           iters: int = 3) -> Dict[str, Any]:
+        """Run a whole population through per-class vmapped runners.
+
+        Groups candidates by their weight-free shape class and runs every
+        member's (repeats, sparsity, dist_scale, zipf_alpha) row through
+        one class's population form, ``max_batch`` lanes a call; the
+        runners come from the shared :class:`PopulationRegistry` (a build
+        is a "compile").  Each chunk's wall is
+        :func:`~repro_torch.core.signature.timed_wall` of its call: one
+        captured CUDA graph on the card.  Returns the wall summed over the
+        chunks, the class and candidate counts, the builds, ``devices``
+        (1: no mesh) and ``modes``: each class's mode by its key digest,
+        ``{"mode": "vmap"}`` or ``{"mode": "lanes", "reason": ...}``,
+        with how its wall was taken under ``"timing"``."""
+        total = 0.0
+        builds = self.pop_registry.builds
+        modes: Dict[str, Dict[str, Any]] = {}
+        classes = set()
+        for chunk in self.population_chunks(pbs):
+            classes.add(chunk.key)
+            wall, timing = timed_wall(chunk.runner(self.seed), iters=iters,
+                                      device=self.device)
+            total += wall
+            modes[_key_attr(chunk.key)] = {**chunk.entry.mode,
+                                           "timing": timing}
+        return {"wall_time": total, "classes": len(classes),
+                "candidates": len(pbs),
+                "compiles": self.pop_registry.builds - builds,
+                "devices": 1, "modes": modes}
+
+    def population_chunks(self, pbs: Sequence[ProxyBenchmark]
+                          ) -> Iterator[PopulationChunk]:
+        """The chunks :meth:`population_runtime` runs, in its order: the
+        candidates grouped by weight-free shape class, each class's
+        population form from the shared registry (built at its first
+        chunk), at most ``max_batch`` lanes a chunk, since every lane
+        holds a full copy of the class's intermediates."""
+        groups: "OrderedDict[Tuple, List[ProxyBenchmark]]" = OrderedDict()
+        for pb in pbs:
+            groups.setdefault(self.cache.key_for(pb, include_repeats=False),
+                              []).append(pb)
+        dev = self.device
+        for class_key, members in groups.items():
+            entry = self.pop_registry.get_or_build(
+                class_key,
+                lambda m=members[0]: PopulationEntry(m.build_lifted_fn(dev)))
+            for lo in range(0, len(members), self.max_batch):
+                chunk = members[lo:lo + self.max_batch]
+                rows = [[n.p.lifted_row() for n in pb.nodes] for pb in chunk]
+                yield PopulationChunk(
+                    class_key, entry, chunk, rows,
+                    torch.tensor(rows, dtype=torch.float32, device=dev))
+
     def stats(self) -> Dict[str, int]:
         s = self.cache.stats()
+        s.update(self.pop_registry.stats())
         s["evals"] = self.evals
+        # gauge (like "...entries"): the widest compile pool actually used
+        s["compile_workers_max"] = self.workers_used
         return s
 
 
@@ -382,6 +629,9 @@ class EvalSession:
     tagged by a different workload count as cross-workload hits, and the
     per-workload stats delta is recorded in ``workload_stats``.
 
+    The session owns one :class:`PopulationRegistry` as well, so
+    :meth:`population_runtime` reuses population forms across workloads.
+
     ``priors=True`` makes every ``generate_proxy`` routed through the
     session prior-seeded by default, and ``substrate`` is the default
     substrate of those calls; both are threaded, not enforced.
@@ -398,6 +648,7 @@ class EvalSession:
     def __init__(self, *, run: bool = True, seed: int = 0,
                  capacity: int = DEFAULT_EVAL_CACHE,
                  max_batch: int = DEFAULT_EVAL_BATCH,
+                 compile_workers: Optional[int] = None,
                  wall_iters: int = 5,
                  priors: bool = False,
                  substrate: str = "torch",
@@ -412,6 +663,7 @@ class EvalSession:
         self.store = store
         self.cache = ExecutableCache(capacity, device=device, store=store,
                                      telemetry=telemetry)
+        self.pop_registry = PopulationRegistry(capacity)
         #: default for generate_proxy(..., priors=None) calls routed
         #: through this session
         self.priors = bool(priors)
@@ -420,7 +672,9 @@ class EvalSession:
         #: one session can hold entries for both substrates
         self.substrate = substrate
         self.engine = BatchEvaluator(run=run, seed=seed, cache=self.cache,
+                                     pop_registry=self.pop_registry,
                                      max_batch=max_batch,
+                                     compile_workers=compile_workers,
                                      wall_iters=wall_iters)
         #: per-workload stats deltas, in sweep order
         self.workload_stats: "OrderedDict[str, Dict[str, int]]" = OrderedDict()
@@ -475,6 +729,10 @@ class EvalSession:
 
     def signature_of(self, pb: ProxyBenchmark) -> Signature:
         return self.engine.signature_of(pb)
+
+    def population_runtime(self, pbs: Sequence[ProxyBenchmark],
+                           iters: int = 3) -> Dict[str, Any]:
+        return self.engine.population_runtime(pbs, iters=iters)
 
     @property
     def evals(self) -> int:

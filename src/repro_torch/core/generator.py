@@ -9,8 +9,7 @@
 5. return the qualified :class:`ProxyBenchmark` + report (accuracy,
    speedup — the paper's Table VI / Fig. 4 quantities).
 
-The reference's ``mesh`` and ``compile_workers`` arguments have no
-counterpart in the port yet.
+The reference's ``mesh`` argument has no counterpart in the port yet.
 """
 from __future__ import annotations
 
@@ -144,6 +143,7 @@ def generate_proxy(
     evaluator: Optional[BatchEvaluator] = None,
     session: Optional[EvalSession] = None,
     cache_capacity: int = DEFAULT_EVAL_CACHE,
+    compile_workers: Optional[int] = None,
     priors: Any = None,
     substrate: Optional[str] = None,
     device: DeviceLike = None,
@@ -163,6 +163,9 @@ def generate_proxy(
     under ``name``.  ``evaluator`` (mutually exclusive) shares a bare
     engine with no per-workload accounting.  Either must run on
     ``device`` with this call's ``run`` and ``seed``.
+
+    ``compile_workers`` sizes the profiling pool of the engine this call
+    builds (``None``: auto, see :class:`BatchEvaluator`).
 
     ``priors`` seeds the adjusting stage with analytic elasticities
     (:mod:`repro_torch.core.priors`): ``True`` derives the table from the
@@ -210,7 +213,9 @@ def generate_proxy(
     # 4. decision-tree tuning -------------------------------------------------
     if evaluator is None:
         evaluator = BatchEvaluator(run=run, seed=seed,
-                                   capacity=cache_capacity, device=dev)
+                                   capacity=cache_capacity,
+                                   compile_workers=compile_workers,
+                                   device=dev)
     if priors is None:
         priors = bool(getattr(evaluator, "priors", False))
     prior_table: Optional[PriorTable] = None

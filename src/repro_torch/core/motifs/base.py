@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.data.generators import DataSpec
-from repro_torch.uint32 import bits, widen
+from repro_torch.uint32 import bits, reinterpret, widen
 
 # ---------------------------------------------------------------------------
 # Parameter vector P (paper Table I)
@@ -183,12 +183,31 @@ class Motif:
         return self._weighted_loop(p, inputs, variant, reps)
 
     def weighted_apply_dynamic(self, p: PVector, inputs: Any,
-                               variant: str = "", reps=None) -> Any:
-        """``weighted_apply`` with an explicit repeat count (int or 0-d
-        tensor); ``None`` uses P's own."""
+                               variant: str = "", reps=None,
+                               max_reps: Optional[int] = None) -> Any:
+        """``weighted_apply`` with an explicit repeat count; ``None`` uses
+        P's own.
+
+        ``reps`` may be an int or a 0-d tensor.  With ``max_reps`` it is
+        the population form's per-lane count under ``torch.func.vmap``,
+        which the host cannot read: the loop then runs to ``max_reps``
+        (the largest count of the lanes, known on the host from their
+        ``lifted_row``), and a lane stops changing its ``(feed, out)``
+        carry once its own count is reached, so a lane at ``reps = r``
+        computes what ``weighted_apply`` computes at weight ``r``."""
         if reps is None:
             return self.weighted_apply(p, inputs, variant)
-        return self._weighted_loop(p, inputs, variant, max(int(reps), 1))
+        if max_reps is None:  # outside vmap the host reads the count
+            return self._weighted_loop(p, inputs, variant, max(int(reps), 1))
+        feed = inputs
+        out = self.execute(p, inputs, variant)
+        for i in range(1, max(int(max_reps), 1)):
+            new = self.execute(p, feed, variant)
+            keep = i < reps
+            feed = _tree_where(keep, _tree_perturb(feed, _tree_checksum(new)),
+                               feed)
+            out = _tree_where(keep, new, out)
+        return out
 
     def _weighted_loop(self, p: PVector, inputs: Any, variant: str,
                        reps: int) -> Any:
@@ -225,6 +244,22 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _tree_where(cond: torch.Tensor, new, old):
+    """``torch.where(cond, new, old)`` leaf by leaf (uint32 through its
+    int32 bits); ``new`` and ``old`` have the same structure.  A leaf that
+    is the same tensor in both (one ``_tree_perturb`` leaves alone) is
+    kept as it is, so it gains no lane dim under vmap."""
+    if new is old:
+        return new
+    if isinstance(new, dict):
+        return {k: _tree_where(cond, new[k], old[k]) for k in new}
+    if isinstance(new, (list, tuple)):
+        return type(new)(_tree_where(cond, a, b) for a, b in zip(new, old))
+    if not isinstance(new, torch.Tensor):
+        return new
+    return reinterpret(torch.where(cond, bits(new), bits(old)), new.dtype)
+
+
 def _tree_checksum(tree) -> torch.Tensor:
     """Tiny scalar derived from outputs (keeps the weight loop honest)."""
     leaves = [l for l in _leaves(tree) if isinstance(l, torch.Tensor)]
@@ -249,7 +284,8 @@ def _tree_perturb(tree, eps: torch.Tensor):
         if x.dtype == torch.int32 or x.dtype == torch.bool:
             return x
         b = bits(x)  # uint32 XORs its int32 bits
-        return torch.bitwise_xor(b, (eps != 0.0).to(b.dtype)).view(x.dtype)
+        return reinterpret(torch.bitwise_xor(b, (eps != 0.0).to(b.dtype)),
+                           x.dtype)
     return _tree_map(one, tree)
 
 

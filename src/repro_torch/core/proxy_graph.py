@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.motifs.base import (
+    LIFT_REPEATS,
     LIFT_SCALE,
     LIFT_SPARSITY,
     LIFT_ZIPF,
@@ -122,21 +123,30 @@ class ProxyBenchmark:
                             device=resolve_device(device))
 
     # -- execution --------------------------------------------------------------
-    def _graph_runner(self, lift_data: bool, device: DeviceLike) -> Callable:
+    def _graph_runner(self, lift_reps: bool, lift_data: bool,
+                      device: DeviceLike) -> Callable:
         order = self.topo_order()
         dev = resolve_device(device)
 
-        def run(seed: int, lifted: Optional[torch.Tensor] = None
-                ) -> Dict[str, Any]:
+        def run(seed: int, lifted: Optional[torch.Tensor] = None,
+                max_reps: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+            if lifted is not None and lift_reps and max_reps is None:
+                # outside vmap the host can read the counts itself
+                max_reps = [int(r) for r in
+                            lifted[:, LIFT_REPEATS].tolist()]
             outputs: Dict[str, Any] = {}
             for i, node in enumerate(order):
                 motif = get_motif(node.motif)
                 p_run = node.p
-                if lifted is not None and lift_data:
-                    p_run = p_run.replace(
-                        sparsity=lifted[i, LIFT_SPARSITY],
-                        dist_scale=lifted[i, LIFT_SCALE],
-                        zipf_alpha=lifted[i, LIFT_ZIPF])
+                reps = cap = None
+                if lifted is not None:
+                    if lift_data:
+                        p_run = p_run.replace(
+                            sparsity=lifted[i, LIFT_SPARSITY],
+                            dist_scale=lifted[i, LIFT_SCALE],
+                            zipf_alpha=lifted[i, LIFT_ZIPF])
+                    if lift_reps:
+                        reps, cap = lifted[i, LIFT_REPEATS], max_reps[i]
                 inputs = motif.make_inputs(p_run, derive_seed(seed, i), dev)
                 if node.deps:
                     _, inputs = _forward_intermediate(
@@ -145,8 +155,8 @@ class ProxyBenchmark:
                     for d in node.deps:
                         eps = eps + _tree_checksum(outputs[d])
                     inputs = _tree_perturb(inputs, eps)
-                outputs[node.id] = motif.weighted_apply(p_run, inputs,
-                                                        node.variant)
+                outputs[node.id] = motif.weighted_apply_dynamic(
+                    p_run, inputs, node.variant, reps, cap)
             return outputs
 
         return run
@@ -154,7 +164,8 @@ class ProxyBenchmark:
     def build_fn(self, device: DeviceLike = None
                  ) -> Callable[[int], Dict[str, Any]]:
         """``seed -> {node_id: outputs}``, every P value baked in."""
-        run = self._graph_runner(lift_data=False, device=device)
+        run = self._graph_runner(lift_reps=False, lift_data=False,
+                                 device=device)
         return lambda seed: run(seed)
 
     def build_eval_fn(self, device: DeviceLike = None) -> Callable:
@@ -162,7 +173,21 @@ class ProxyBenchmark:
         form* the evaluator profiles: sparsity, dist_scale and zipf_alpha
         come from ``lifted`` as tensors (so their masks and multiplies
         always run), repeats from each node's P."""
-        return self._graph_runner(lift_data=True, device=device)
+        return self._graph_runner(lift_reps=False, lift_data=True,
+                                  device=device)
+
+    def build_lifted_fn(self, device: DeviceLike = None) -> Callable:
+        """``(seed, lifted: f32[n_nodes, 4], max_reps=None) -> outputs``
+        with repeats also lifted — the *population form*, whose shape key
+        is ``shape_signature(include_repeats=False)``.
+
+        ``torch.func.vmap`` over ``lifted`` runs a whole population of
+        weight and data-characteristic assignments in one call; each
+        node's loop then runs to ``max_reps[i]``, the largest repeat
+        count of the lanes (the host reads it from ``lifted`` itself
+        outside vmap)."""
+        return self._graph_runner(lift_reps=True, lift_data=True,
+                                  device=device)
 
     # -- (de)serialisation --------------------------------------------------
     def to_json(self) -> str:

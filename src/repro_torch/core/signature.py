@@ -314,23 +314,31 @@ def _device_of(args) -> torch.device:
     return ts[0].device if ts else torch.device("cpu")
 
 
+_PEAK_LOCK = threading.Lock()
+
+
 def profile_call(fn: Callable, *args,
                  device: Optional[torch.device] = None) -> Signature:
     """Run ``fn(*args)`` once under the op profiler; its signature without
-    wall time.  ``device`` defaults to the first tensor argument's."""
+    wall time.  ``device`` defaults to the first tensor argument's.  The
+    profiler is per thread; on CUDA a lock keeps profiles from several
+    threads apart, since the allocator's peak counts the whole device."""
     device = device or _device_of(args)
-    cuda = device.type == "cuda"
-    if cuda:
-        synchronize(device)
-        before = torch.cuda.memory_allocated(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    with _Profiler() as prof:
-        fn(*args)
-    peak = 0.0
-    if cuda:
-        synchronize(device)
-        peak = float(torch.cuda.max_memory_allocated(device) - before
-                     + _nbytes(_tensors(args)))
+    if device.type == "cuda":
+        # the allocator's peak is the device's: one profile at a time
+        with _PEAK_LOCK:
+            synchronize(device)
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            with _Profiler() as prof:
+                fn(*args)
+            synchronize(device)
+            peak = float(torch.cuda.max_memory_allocated(device) - before
+                         + _nbytes(_tensors(args)))
+    else:
+        with _Profiler() as prof:
+            fn(*args)
+        peak = 0.0
     st = prof.stats
     return Signature(
         flops=st.flops, bytes=st.bytes, transcendentals=st.transcendentals,
@@ -364,7 +372,7 @@ class NotCaptured(RuntimeError):
 _PACKAGE = Path(__file__).resolve().parents[1]
 
 
-def _where(exc: BaseException) -> str:
+def where_raised(exc: BaseException) -> str:
     """The innermost frame of this package in ``exc``'s traceback, as
     ``file:line (function)``: the call that broke the capture."""
     frames = [f for f in traceback.extract_tb(exc.__traceback__)
@@ -486,7 +494,7 @@ class CapturedGraph:
             if not isinstance(failure, RuntimeError):
                 raise failure
             first = (str(failure).strip().splitlines() or [""])[0]
-            raise NotCaptured(f"{first} at {_where(failure)}") from failure
+            raise NotCaptured(f"{first} at {where_raised(failure)}") from failure
 
     def replay(self) -> None:
         self.supply.reset()

@@ -1,6 +1,5 @@
 """Decision-tree auto-tuning (paper §II-B3 Adjusting + §II-B4 Feedback);
-port of ``repro/core/tuner.py`` without the mesh quantize hook, which the
-port does not have yet.
+port of ``repro/core/tuner.py``.
 
 The paper's tool
 1. *Impact analysis*: perturb one parameter at a time, run the proxy, and
@@ -23,6 +22,14 @@ observation of a prior-backed pair blends in through ``(c * prior +
 sum(observed)) / (c + n)`` instead of the flat 0.5/0.5 mix.
 ``priors=None`` is the legacy loop, and an empty table is bit-identical
 to it.
+
+Mesh-aware tuning: a ``quantize`` hook (normally :func:`repro_torch.core.
+cluster.make_quantizer`'s closure over ``quantize_proxy``) is applied to
+every candidate at construction, before it is encoded or evaluated, so
+the tree predicts on quantized features, elasticities are learned from
+quantized moves, and every scored candidate is a fixed point of the
+rule.  ``qualification_rate`` (the fraction of submitted candidates that
+are fixed points) certifies it; ``quantize=None`` is the legacy loop.
 """
 from __future__ import annotations
 
@@ -213,7 +220,9 @@ class TuneResult:
     trace: List[TuneTrace] = field(default_factory=list)
     tree_depth: int = 0
     evals: int = 0
-    #: 1.0: without a quantize rule every candidate qualifies
+    #: fraction of evaluated candidates that were fixed points of the
+    #: tuner's quantize rule at submission: 1.0 by construction with a
+    #: rule, and by convention without one
     qualification_rate: float = 1.0
     #: True when the run was seeded with an elasticity-prior table
     prior_seeded: bool = False
@@ -226,6 +235,8 @@ class DecisionTreeTuner:
                  tol: float = 0.15, max_iters: int = 24,
                  impact_factor: float = 2.0, seed: int = 0,
                  batch_evaluate: Optional[BatchEvalFn] = None,
+                 quantize: Optional[Callable[[ProxyBenchmark],
+                                             ProxyBenchmark]] = None,
                  priors: Optional["PriorTable"] = None):
         # `evaluate` may be a plain EvalFn or a BatchEvaluator / EvalSession
         # (callable, with an `evaluate_batch` method that dedups shape
@@ -238,6 +249,10 @@ class DecisionTreeTuner:
         self.tol = tol
         self.max_iters = max_iters
         self.impact_factor = impact_factor
+        # candidate-rounding rule: an idempotent ProxyBenchmark ->
+        # ProxyBenchmark map applied to every candidate before it is
+        # encoded or evaluated.  None = the legacy path, untouched.
+        self.quantize = quantize
         # None = the observed-only loop; an EMPTY table must be
         # bit-identical to None, so every prior branch below keys off an
         # actual table entry
@@ -258,6 +273,27 @@ class DecisionTreeTuner:
         self.metric_names: List[str] = sorted(self.target)
         self.tree = DecisionTree(max_depth=4)
         self.evals = 0
+        # of the candidates submitted, how many were already fixed points
+        # of the quantize rule
+        self.submitted = 0
+        self.submitted_qualified = 0
+
+    # -- candidate rounding ---------------------------------------------------
+    def _q(self, pb: ProxyBenchmark) -> ProxyBenchmark:
+        return pb if self.quantize is None else self.quantize(pb)
+
+    def _is_qualified(self, pb: ProxyBenchmark) -> bool:
+        """Is ``pb`` a fixed point of the quantize rule?"""
+        if self.quantize is None:
+            return True
+        q = self.quantize(pb)
+        return q is pb or q.shape_signature() == pb.shape_signature()
+
+    @property
+    def qualification_rate(self) -> float:
+        if self.submitted == 0:
+            return 1.0
+        return self.submitted_qualified / self.submitted
 
     # -- metric plumbing ----------------------------------------------------
     def _mvec(self, m: Mapping[str, float]) -> np.ndarray:
@@ -269,6 +305,9 @@ class DecisionTreeTuner:
     def _eval_batch(self, pbs: Sequence[ProxyBenchmark]
                     ) -> List[Dict[str, float]]:
         self.evals += len(pbs)
+        self.submitted += len(pbs)
+        self.submitted_qualified += sum(
+            1 for pb in pbs if self._is_qualified(pb))
         if self.batch_evaluate is not None:
             return list(self.batch_evaluate(pbs))
         return [self.evaluate(pb) for pb in pbs]
@@ -282,7 +321,10 @@ class DecisionTreeTuner:
         submitted as ONE candidate batch.  Params a prior table covers
         skip their perturbations (the analytic slope replaces the probe),
         and measured slopes of prior-backed pairs blend in as
-        observations."""
+        observations.  Every perturbation passes the quantize rule first:
+        a move it rounds back to the base, or couples with another
+        feature, carries no single-param slope and is dropped before it
+        costs an eval."""
         base_x = encode(pb, refs)
         covered = self.priors.covered if self.priors is not None else ()
         cands: List[Tuple[int, ProxyBenchmark, float]] = []
@@ -290,7 +332,7 @@ class DecisionTreeTuner:
             if ref.label() in covered:
                 continue  # the analytic prior replaces this probe
             for factor in (self.impact_factor, 1.0 / self.impact_factor):
-                moved = apply_move(pb, ref, factor)
+                moved = self._q(apply_move(pb, ref, factor))
                 delta = encode(moved, refs) - base_x
                 dx = delta[i]
                 if dx == 0.0:
@@ -394,12 +436,12 @@ class DecisionTreeTuner:
             i = int(self.rng.integers(len(refs)))
             f = float(self.rng.choice(
                 [self.impact_factor, 1.0 / self.impact_factor]))
-            attempt = apply_move(cur, refs[i], f)
+            attempt = self._q(apply_move(cur, refs[i], f))
             if not np.array_equal(encode(attempt, refs), cur_x):
                 return attempt, refs[i].label(), f, i
         for i, ref in enumerate(refs):
             for f in (self.impact_factor, 1.0 / self.impact_factor):
-                attempt = apply_move(cur, ref, f)
+                attempt = self._q(apply_move(cur, ref, f))
                 if not np.array_equal(encode(attempt, refs), cur_x):
                     return attempt, ref.label(), f, i
         return None
@@ -439,6 +481,9 @@ class DecisionTreeTuner:
                 if k in set_this_iter or v > 1}
 
     def tune(self, pb: ProxyBenchmark) -> TuneResult:
+        # the seed proxy is rounded first, so the whole loop lives in
+        # quantized space
+        pb = self._q(pb)
         refs = movable_params(pb)
         self.impact_analysis(pb, refs)
 
@@ -480,7 +525,7 @@ class DecisionTreeTuner:
                                             self.target[worst_metric])
                     if f is None:
                         continue
-                    attempt = apply_move(cur, ref, f)
+                    attempt = self._q(apply_move(cur, ref, f))
                     if np.array_equal(encode(attempt, refs),
                                       encode(cur, refs)):
                         continue  # clamped at bound (or rounded back)
@@ -538,6 +583,7 @@ class DecisionTreeTuner:
             trace=trace,
             tree_depth=self.tree.depth(),
             evals=self.evals,
+            qualification_rate=self.qualification_rate,
             prior_seeded=bool(self.priors is not None
                               and (self.priors.slopes
                                    or self.priors.covered)),

@@ -10,7 +10,8 @@ is built at import: :func:`library` builds at first use, on a host with
 
 :func:`define_op` registers each kernel as an op of the ``repro_torch``
 namespace with ``torch.library.Library``: one Python function, the
-wrapper, is the op's kernel for the CPU and the CUDA dispatch keys.
+wrapper, is the op's kernel for the CPU and the CUDA dispatch keys;
+:func:`define_vmap` gives an op its batching rule for ``torch.func.vmap``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List
@@ -47,7 +49,8 @@ _F = ctypes.c_float
 
 #: C entry points: name -> argtypes (every one returns a CUDA status)
 SIGNATURES = {
-    "repro_matmul": [_I, _I, _P, _P, _P, _L, _L, _L, _P],
+    "repro_matmul_lanes": [_I, _I, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L,
+                           _P],
     "repro_row_moments": [_I, _P, _P, _P, _P, _L, _L, _I, _P],
     "repro_bitonic_tile": [_I, _P, _P, _L, _L, _I, _I, _I, _I, _P],
     "repro_bitonic_global": [_I, _P, _L, _I, _I, _I, _I, _P],
@@ -168,6 +171,27 @@ def define_op(schema: str, impl: Callable) -> None:
     _LIB.define(schema)
     for key in ("CPU", "CUDA"):
         _LIB.impl(name, impl, key)
+
+
+def define_vmap(name: str, rule: Callable) -> None:
+    """Register ``rule`` as the batching rule of ``repro_torch::<name>``
+    (``torch.library.register_vmap`` on this module's ``Library``), so
+    ``torch.func.vmap`` runs the op once on all lanes instead of
+    functorch's fallback, which calls it once a lane."""
+    torch.library.register_vmap(f"repro_torch::{name}", rule, lib=_LIB)
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper: Callable, form: str = None) -> None:
+    """Add one to ``wrapper.launches`` (and to ``wrapper.forms[form]``)
+    under a lock: the evaluator's compile workers launch kernels from
+    several threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if form is not None:
+            wrapper.forms[form] += 1
 
 
 def stream_ptr(device: torch.device) -> int:

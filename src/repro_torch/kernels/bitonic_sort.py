@@ -12,7 +12,8 @@ so the CPU tests can replay it: tile passes sort inside each tile of
 :func:`tile_for` keys (2048..32,768, several blocks to a tile when blocks
 are smaller), and global passes take the strides of larger blocks that
 cross tiles, up to ``GLOBAL_STRIDES`` of them in one read and write of
-the array.
+the array.  Under ``torch.func.vmap`` the op's batching rule sorts every
+lane's blocks in one launch.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.uint32 import full
 
 DTYPES = (torch.uint32, torch.int32, torch.float32, torch.bfloat16)
 
@@ -123,13 +125,31 @@ def _bitonic_sort_blocks_op(x: torch.Tensor, block: int) -> torch.Tensor:
         else:
             _build.call("repro_bitonic_global", code, out.data_ptr(), n_pad,
                         log2_block, *step, stream)
-    bitonic_sort_blocks.launches += 1
+    _build.count_launch(bitonic_sort_blocks)
     return out
 
 
 _build.define_op(
     "bitonic_sort_blocks(Tensor x, SymInt block) -> Tensor",
     _bitonic_sort_blocks_op)
+
+
+def _bitonic_sort_blocks_vmap(info, in_dims, x, block):
+    """vmap of the op: the lanes' blocks are independent, so each lane is
+    padded with the sentinel to whole blocks (what the op pads its output
+    with) and (L, n) -> (L·n) sorts them all in one launch."""
+    x = x.movedim(in_dims[0], 0)
+    lanes, n = x.shape
+    pad = (-n) % block
+    if pad:
+        x = torch.cat([x, full((lanes, pad), SENTINELS[x.dtype], x.dtype,
+                               x.device)], 1)
+    out = torch.ops.repro_torch.bitonic_sort_blocks(
+        x.reshape(-1).contiguous(), block)
+    return out.reshape(lanes, n + pad), 0
+
+
+_build.define_vmap("bitonic_sort_blocks", _bitonic_sort_blocks_vmap)
 
 
 def bitonic_sort_blocks(x: torch.Tensor, *, block: int = 1024) -> torch.Tensor:

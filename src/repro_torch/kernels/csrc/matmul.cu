@@ -64,6 +64,14 @@
 // store, so no padded copy is made; offsets are 64-bit.  bf16 operands
 // are converted to f32 on load and the result rounded once on the store.
 //
+// Lanes: repro_matmul_lanes runs L independent products in one launch
+// (the population form's batched Matrix motif under torch.func.vmap).
+// blockIdx.z picks the lane, whose a, b and c start sa, sb and sc
+// elements past the lane before (0 for an operand all lanes share); each
+// lane's tile, form and k order are those of its own one-lane launch, so
+// a lane's bits equal that launch's.  One lane with strides 0 is the
+// plain product.
+//
 // moe_dispatch.cu's f32 form keeps the older 64 x 64 loop of
 // gemm_tile.cuh, which reads its A operand column-major in place.
 #include <type_traits>
@@ -93,6 +101,11 @@ template <typename T>
 __device__ __forceinline__ void load_unit(const T* p, float (&f)[kUnit<T>]) {
   unpack16(__ldg(reinterpret_cast<const uint4*>(p)), f);
 }
+
+// lanes of one launch: n products, operand x of lane z at x + z * sx
+struct Lanes {
+  int64_t n, sa, sb, sc;
+};
 
 // ---------------------------------------------------------------------------
 // narrow form
@@ -191,8 +204,11 @@ struct Slabs {
 template <typename T, int NP>
 __global__ void __launch_bounds__(THREADS)
 kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-       int64_t M, int64_t N, int64_t K) {
+       int64_t M, int64_t N, int64_t K, int64_t sa, int64_t sb, int64_t sc) {
   using L = Slabs<T, NP>;
+  a += blockIdx.z * sa;  // this block's lane
+  b += blockIdx.z * sb;
+  c += blockIdx.z * sc;
   constexpr int S = L::S;
   constexpr int EB = L::EB;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -269,22 +285,24 @@ kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
 
 template <typename T, int NP>
 int launch_np(const T* a, const T* b, T* c, int64_t M, int64_t N, int64_t K,
-              cudaStream_t s) {
+              const Lanes& ln, cudaStream_t s) {
   constexpr int bytes = smem_bytes<T, NP>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const unsigned blocks = static_cast<unsigned>((M + BM - 1) / BM);
-  kernel<T, NP><<<blocks, THREADS, bytes, s>>>(a, b, c, M, N, K);
+  const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM), 1,
+                  static_cast<unsigned>(ln.n));
+  kernel<T, NP><<<grid, THREADS, bytes, s>>>(a, b, c, M, N, K, ln.sa, ln.sb,
+                                             ln.sc);
   return launch_status();
 }
 
 template <typename T>
 int launch(const T* a, const T* b, T* c, int64_t M, int64_t N, int64_t K,
-           cudaStream_t s) {
-  if (N <= 8) return launch_np<T, 8>(a, b, c, M, N, K, s);
-  if (N <= 16) return launch_np<T, 16>(a, b, c, M, N, K, s);
-  return launch_np<T, 32>(a, b, c, M, N, K, s);
+           const Lanes& ln, cudaStream_t s) {
+  if (N <= 8) return launch_np<T, 8>(a, b, c, M, N, K, ln, s);
+  if (N <= 16) return launch_np<T, 16>(a, b, c, M, N, K, ln, s);
+  return launch_np<T, 32>(a, b, c, M, N, K, ln, s);
 }
 
 }  // namespace narrow
@@ -394,7 +412,7 @@ struct Slabs {
 template <typename T, int BM, int BN, bool VEC>
 __global__ void __launch_bounds__(THREADS, BM * BN >= 128 * 128 ? 1 : 2)
 kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-       int64_t M, int64_t N, int64_t K) {
+       int64_t M, int64_t N, int64_t K, int64_t sa, int64_t sb, int64_t sc) {
   using L = Slabs<T, BM, BN, VEC>;
   constexpr int TM = BM / 16, TN = BN / 16;
   constexpr int RV = TM % 4 == 0 ? 4 : 2;  // a thread's rows: TM/RV runs
@@ -403,6 +421,9 @@ kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
 
   __shared__ __align__(16) float as[2][BK][L::SA];  // k-major
   __shared__ __align__(16) float bs[2][BK][L::SB];
+  a += blockIdx.z * sa;  // this block's lane
+  b += blockIdx.z * sb;
+  c += blockIdx.z * sc;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -535,24 +556,28 @@ Tile pick(int64_t M, int64_t N) {
 
 template <typename T, int BM, int BN, bool VEC>
 int launch_tile(const T* a, const T* b, T* c, int64_t M, int64_t N, int64_t K,
-                cudaStream_t s) {
+                const Lanes& ln, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
-                  static_cast<unsigned>((N + BN - 1) / BN));
-  kernel<T, BM, BN, VEC><<<grid, THREADS, 0, s>>>(a, b, c, M, N, K);
+                  static_cast<unsigned>((N + BN - 1) / BN),
+                  static_cast<unsigned>(ln.n));
+  kernel<T, BM, BN, VEC><<<grid, THREADS, 0, s>>>(a, b, c, M, N, K, ln.sa,
+                                                  ln.sb, ln.sc);
   return launch_status();
 }
 
+// the tile is picked for one lane: a lane computes what its own launch would
 template <typename T, bool VEC>
 int launch(const T* a, const T* b, T* c, int64_t M, int64_t N, int64_t K,
-           cudaStream_t s) {
+           const Lanes& ln, cudaStream_t s) {
   const Tile t = pick(M, N);
   if (t.bm == 128 && t.bn == 128)
-    return launch_tile<T, 128, 128, VEC>(a, b, c, M, N, K, s);
-  if (t.bm == 96) return launch_tile<T, 96, 128, VEC>(a, b, c, M, N, K, s);
+    return launch_tile<T, 128, 128, VEC>(a, b, c, M, N, K, ln, s);
+  if (t.bm == 96) return launch_tile<T, 96, 128, VEC>(a, b, c, M, N, K, ln, s);
   if (t.bm == 64 && t.bn == 128)
-    return launch_tile<T, 64, 128, VEC>(a, b, c, M, N, K, s);
-  if (t.bm == 128) return launch_tile<T, 128, 64, VEC>(a, b, c, M, N, K, s);
-  return launch_tile<T, 64, 64, VEC>(a, b, c, M, N, K, s);
+    return launch_tile<T, 64, 128, VEC>(a, b, c, M, N, K, ln, s);
+  if (t.bm == 128)
+    return launch_tile<T, 128, 64, VEC>(a, b, c, M, N, K, ln, s);
+  return launch_tile<T, 64, 64, VEC>(a, b, c, M, N, K, ln, s);
 }
 
 }  // namespace wide
@@ -560,38 +585,46 @@ int launch(const T* a, const T* b, T* c, int64_t M, int64_t N, int64_t K,
 bool on_grid(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // form: 0 picks from M, N and a's alignment (see the note), 1 forces the
-// wide form, 2 the narrow one (N <= MAX_N, a's rows on the 16-byte grid)
+// wide form, 2 the narrow one (N <= MAX_N, a's rows on the 16-byte grid).
+// An operand is on the grid when every lane's copy is: its base and its
+// lane stride.
 template <typename T>
 int launch(int form, const void* a, const void* b, void* c, int64_t M,
-           int64_t N, int64_t K, cudaStream_t s) {
+           int64_t N, int64_t K, const Lanes& ln, cudaStream_t s) {
+  if (ln.n < 1 || ln.n > 65535) return -1;
   const T* at = static_cast<const T*>(a);
   const T* bt = static_cast<const T*>(b);
   T* ct = static_cast<T*>(c);
-  const bool rows_a = on_grid(a) && K % kUnit<T> == 0;
+  constexpr int V = kUnit<T>;
+  const bool rows_a = on_grid(a) && K % V == 0 && ln.sa % V == 0;
   const bool narrow_n =
       N <= narrow::SMALL_M_N || (N <= narrow::MAX_N && M >= narrow::FULL_M);
   if (form == 0) form = rows_a && narrow_n ? 2 : 1;
   if (form == 2) {
     if (N > narrow::MAX_N || !rows_a) return -1;
-    return narrow::launch<T>(at, bt, ct, M, N, K, s);
+    return narrow::launch<T>(at, bt, ct, M, N, K, ln, s);
   }
   if (form != 1) return -1;
-  const bool vec = rows_a && on_grid(b) && on_grid(c) && N % kUnit<T> == 0;
-  return vec ? wide::launch<T, true>(at, bt, ct, M, N, K, s)
-             : wide::launch<T, false>(at, bt, ct, M, N, K, s);
+  const bool vec = rows_a && on_grid(b) && on_grid(c) && N % V == 0 &&
+                   ln.sb % V == 0 && ln.sc % V == 0;
+  return vec ? wide::launch<T, true>(at, bt, ct, M, N, K, ln, s)
+             : wide::launch<T, false>(at, bt, ct, M, N, K, ln, s);
 }
 
 }  // namespace
 
-extern "C" int repro_matmul(int dtype, int form, const void* a, const void* b,
-                            void* c, long long M, long long N, long long K,
-                            void* stream) {
+extern "C" int repro_matmul_lanes(int dtype, int form, const void* a,
+                                  const void* b, void* c, long long M,
+                                  long long N, long long K, long long lanes,
+                                  long long sa, long long sb, long long sc,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Lanes ln{lanes, sa, sb, sc};
   switch (dtype) {
     case kFloat32:
-      return launch<float>(form, a, b, c, M, N, K, s);
+      return launch<float>(form, a, b, c, M, N, K, ln, s);
     case kBFloat16:
-      return launch<__nv_bfloat16>(form, a, b, c, M, N, K, s);
+      return launch<__nv_bfloat16>(form, a, b, c, M, N, K, ln, s);
     default:
       return -1;
   }

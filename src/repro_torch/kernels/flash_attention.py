@@ -104,8 +104,7 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, sq, k.shape[1], h, d, 1.0 / math.sqrt(d), int(causal),
                 _build.stream_ptr(q.device))
-    flash_attention.launches += 1
-    flash_attention.forms[kind] += 1
+    _build.count_launch(flash_attention, kind)
     return out
 
 

@@ -7,7 +7,9 @@ the CPU runs the plain version (``ref.matmul``); a CUDA tensor launches
 the kernel or raises.  :func:`form` names the kernel's form (the narrow
 one-pass form at small N, the wide FMA tile loop above; the kernel picks
 its own tile and load widths) and ``matmul.forms`` counts launches per
-form.
+form.  Under ``torch.func.vmap`` the op's batching rule runs all lanes in
+one launch: lanes of x alone fold into M, lanes of y take the kernel's
+lane axis (:func:`matmul_lanes`).
 """
 from __future__ import annotations
 
@@ -38,9 +40,15 @@ def form(x: torch.Tensor, y: torch.Tensor) -> str:
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
-    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[0]:
+    """x (M, K) or (L, M, K) and y (K, N) or (L, K, N), contiguous, of
+    one dtype and device; two lane operands have the same lane count."""
+    if (x.ndim not in (2, 3) or y.ndim not in (2, 3)
+            or x.shape[-1] != y.shape[-2]):
         raise ValueError(f"matmul wants (M,K) @ (K,N), got {tuple(x.shape)} "
                          f"@ {tuple(y.shape)}")
+    if x.ndim == 3 and y.ndim == 3 and x.shape[0] != y.shape[0]:
+        raise ValueError(f"matmul lanes: x has {x.shape[0]} lanes, y "
+                         f"{y.shape[0]}")
     if x.dtype != y.dtype or x.dtype not in DTYPES:
         raise TypeError(f"matmul wants two f32 or two bf16 operands, got "
                         f"{x.dtype} and {y.dtype}")
@@ -50,33 +58,71 @@ def _check(x: torch.Tensor, y: torch.Tensor) -> None:
         raise ValueError("matmul wants contiguous operands")
 
 
+def _lane(t: torch.Tensor) -> torch.Tensor:
+    """One lane of a lane operand, or the shared 2-D operand itself."""
+    return t if t.ndim == 2 else t[0]
+
+
 def launch_matmul(x: torch.Tensor, y: torch.Tensor,
                   kind: str = "auto") -> torch.Tensor:
-    """The kernel on CUDA tensors x, y in form ``kind`` ("auto" picks as
-    :func:`form` says; "narrow" takes N <= ``NARROW_N`` and x's rows on
-    the 16-byte grid only)."""
-    M, K = x.shape
-    N = y.shape[1]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    """The kernel on CUDA tensors x (M, K) or (L, M, K) and y (K, N) or
+    (L, K, N) in form ``kind`` ("auto" picks as :func:`form` says;
+    "narrow" takes N <= ``NARROW_N`` and x's rows on the 16-byte grid
+    only).  A 2-D operand is shared by every lane; the kernel's lane axis
+    (``blockIdx.z``) runs each lane with the tile, form and k order of a
+    one-lane launch.  Returns (M, N), or (L, M, N) when an operand has
+    lanes."""
+    (M, K), N = _lane(x).shape, y.shape[-1]
+    lanes = x.shape[0] if x.ndim == 3 else (y.shape[0] if y.ndim == 3 else 1)
+    out = torch.empty((lanes, M, N), dtype=x.dtype, device=x.device)
     if out.numel():
-        _build.call("repro_matmul", _build.dtype_code(x, DTYPES),
+        _build.call("repro_matmul_lanes", _build.dtype_code(x, DTYPES),
                     FORM_CODES[kind], x.data_ptr(), y.data_ptr(),
-                    out.data_ptr(), M, N, K, _build.stream_ptr(x.device))
-    return out
+                    out.data_ptr(), M, N, K, lanes,
+                    M * K if x.ndim == 3 else 0, K * N if y.ndim == 3 else 0,
+                    M * N, _build.stream_ptr(x.device))
+    return out if x.ndim == 3 or y.ndim == 3 else out[0]
 
 
-def _matmul_op(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def matmul_lanes(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x @ y in one launch, x (M, K) or (L, M, K), y (K, N) or (L, K, N),
+    a 2-D operand shared by every lane (:func:`launch_matmul`).  The one
+    wrapper of the kernel: the op and its batching rule both call it.  On
+    the CPU, ``ref.matmul``."""
     _check(x, y)
     if x.device.type == "cpu":
         return ref.matmul(x, y)
     out = launch_matmul(x, y)
     if out.numel():
-        matmul.launches += 1
-        matmul.forms[form(x, y)] += 1
+        _build.count_launch(matmul, form(_lane(x), _lane(y)))
     return out
 
 
+def _matmul_op(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    if x.ndim != 2 or y.ndim != 2:
+        raise ValueError(f"matmul wants (M,K) @ (K,N), got {tuple(x.shape)} "
+                         f"@ {tuple(y.shape)}")
+    return matmul_lanes(x, y)
+
+
 _build.define_op("matmul(Tensor x, Tensor y) -> Tensor", _matmul_op)
+
+
+def _matmul_vmap(info, in_dims, x, y):
+    """vmap of the op: lanes of x alone fold into M (one product); lanes
+    of y take the kernel's lane axis (:func:`matmul_lanes`)."""
+    dx, dy = in_dims
+    if dx is not None:
+        x = x.movedim(dx, 0)
+    if dy is None:
+        lanes, M, K = x.shape
+        out = torch.ops.repro_torch.matmul(
+            x.reshape(lanes * M, K).contiguous(), y)
+        return out.reshape(lanes, M, -1), 0
+    return matmul_lanes(x.contiguous(), y.movedim(dy, 0).contiguous()), 0
+
+
+_build.define_vmap("matmul", _matmul_vmap)
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

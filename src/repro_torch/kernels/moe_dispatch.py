@@ -55,8 +55,7 @@ def _moe_dispatch_op(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _build.call("repro_moe_dispatch", _build.dtype_code(mask, DTYPES),
                 _build.dtype_code(x, DTYPES), mask.data_ptr(), x.data_ptr(),
                 out.data_ptr(), t, e, c, d, _build.stream_ptr(x.device))
-    moe_dispatch.launches += 1
-    moe_dispatch.forms[form(x)] += 1
+    _build.count_launch(moe_dispatch, form(x))
     return out
 
 

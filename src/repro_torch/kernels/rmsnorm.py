@@ -13,7 +13,8 @@ launches, for a few long rows).  RMSNorm has two, named by
 :func:`rmsnorm_form` (also ``rmsnorm.form``) and counted in
 ``rmsnorm.forms``: ``warp`` (16-byte loads and stores, a part of a warp
 or a warp a row) and ``scalar`` (rows off the 16-byte grid or longer
-than the warp form takes).
+than the warp form takes).  Under ``torch.func.vmap`` row moments' batching
+rule folds the lanes into rows: one launch for all lanes.
 """
 from __future__ import annotations
 
@@ -107,12 +108,24 @@ def _row_moments_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     splits = splits_for(x.numel() // d, d, x.element_size())
     out = launch_row_moments(x, splits)
     if x.numel():
-        row_moments.launches += 1
-        row_moments.forms[FORMS[splits > 1]] += 1
+        _build.count_launch(row_moments, FORMS[splits > 1])
     return out
 
 
 _build.define_op("row_moments(Tensor x) -> (Tensor, Tensor)", _row_moments_op)
+
+
+def _row_moments_vmap(info, in_dims, x):
+    """vmap of the op: the lanes' rows are rows, (L, R, C) -> (L·R, C),
+    one launch."""
+    x = x.movedim(in_dims[0], 0)
+    lead = x.shape[:-1]
+    mean, msq = torch.ops.repro_torch.row_moments(
+        x.reshape(-1, x.shape[-1]).contiguous())
+    return (mean.reshape(lead), msq.reshape(lead)), (0, 0)
+
+
+_build.define_vmap("row_moments", _row_moments_vmap)
 
 
 def row_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,8 +185,7 @@ def _rmsnorm_op(x: torch.Tensor, w: torch.Tensor,
     _build.call("repro_rmsnorm", _build.dtype_code(x, DTYPES),
                 _build.dtype_code(w, DTYPES), x.data_ptr(), w.data_ptr(),
                 out.data_ptr(), rows, d, eps, _build.stream_ptr(x.device))
-    rmsnorm.launches += 1
-    rmsnorm.forms[rmsnorm_form(x)] += 1
+    _build.count_launch(rmsnorm, rmsnorm_form(x))
     return out
 
 

@@ -13,6 +13,10 @@ exact detours, taken for uint32 on every device:
   come back through :func:`narrow`;
 * bit-exact ops (indexing, XOR, fill) run on the same bits viewed as
   int32 (:func:`bits`), a free reinterpretation.
+
+Under ``torch.func.vmap`` a lane tensor takes the wrapping conversion in
+place of the view (:func:`reinterpret`): torch 2.11 has no batching rule
+for a dtype view, and the conversion gives the same bits.
 """
 from __future__ import annotations
 
@@ -26,22 +30,34 @@ def widen(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) if x.dtype == _U32 else x
 
 
+def reinterpret(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The bits of ``x`` as ``dtype`` of the same width: a view, or for a
+    lane tensor under ``torch.func.vmap`` the wrapping conversion, which
+    gives the same bits (int32 and uint32 differ only in how they read
+    them)."""
+    if x.dtype == dtype:
+        return x
+    if torch._C._functorch.is_batchedtensor(x):
+        return x.to(dtype)
+    return x.view(dtype)
+
+
 def narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Undo :func:`widen`: int64 values in [0, 2^32) back to ``dtype``."""
     if dtype != _U32:
         return x.to(dtype)
     signed = torch.where(x >= 1 << 31, x - (1 << 32), x)
-    return signed.to(torch.int32).view(_U32)
+    return reinterpret(signed.to(torch.int32), _U32)
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:
     """uint32 bits viewed as int32 (any other dtype unchanged)."""
-    return x.view(torch.int32) if x.dtype == _U32 else x
+    return reinterpret(x, torch.int32) if x.dtype == _U32 else x
 
 
 def take(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``x[index]`` along the first dim, for any dtype."""
-    return bits(x)[index].view(x.dtype)
+    return reinterpret(bits(x)[index], x.dtype)
 
 
 def full(shape, value, dtype: torch.dtype,

@@ -170,6 +170,59 @@ def test_cuda_wrappers_count_one_launch_per_call(cuda_device):
                                     "flash_attention": 1, "moe_dispatch": 1}
 
 
+def _vmap(fn, *args, in_dims=0):
+    """vmap with functorch's per-lane fallback disabled."""
+    from repro_torch.core.evaluator import no_vmap_fallback
+
+    with no_vmap_fallback():
+        return torch.func.vmap(fn, in_dims=in_dims)(*args)
+
+
+# (lanes, M, K, N, in_dims): lanes of y alone (x shared, stride 0), of
+# both, of x alone (folded into M); the narrow form (N <= 16) and the wide
+# one, K off the 16-byte unit
+LANE_MATMUL_CASES = [(2, 300, 64, 8, (None, 0)), (32, 300, 64, 8, (0, 0)),
+                     (3, 129, 65, 257, (0, 0)), (32, 96, 128, 128, (0, 0)),
+                     (4, 200, 48, 24, (0, None))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_lane_forms_match_the_loop_in_one_launch(cuda_device, dtype):
+    """Each op's vmapped form on the card: one launch for all lanes, each
+    lane equal to the op on that lane (the matmul lane bit for bit: it
+    runs its own launch's tile, form and k order)."""
+    for lanes, m, k, n, dims in LANE_MATMUL_CASES:
+        x = _on_card(cuda_device, 1, (lanes, m, k), dtype)
+        y = _on_card(cuda_device, 2, (lanes, k, n), dtype)
+        xs = x if dims[0] is not None else x[0]
+        ys = y if dims[1] is not None else y[0]
+        tops.reset_launches()
+        got = _vmap(tops.matmul, xs, ys, in_dims=dims)
+        assert tops.launch_counts()["matmul"] == 1
+        for j in range(lanes):
+            want = tops.matmul(xs[j] if dims[0] is not None else xs,
+                               ys[j] if dims[1] is not None else ys)
+            assert torch.equal(got[j], want), (lanes, m, k, n, dims, j)
+    if dtype == "float32":
+        x = _on_card(cuda_device, 3, (32, 64, 1024), dtype)
+        tops.reset_launches()
+        mean, msq = _vmap(tops.row_moments, x)
+        assert tops.launch_counts()["row_moments"] == 1
+        for j in range(32):
+            wm, ws = tref.row_moments(x[j])
+            torch.testing.assert_close(mean[j], wm, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(msq[j], ws, rtol=1e-4, atol=1e-5)
+    for n, block in ((4096, 2048), (5000, 1024)):
+        keys = to_torch(np_rand(4, (32, n), "uint32")).to(cuda_device)
+        tops.reset_launches()
+        got = _vmap(lambda v: tbs.bitonic_sort_blocks(v, block=block), keys)
+        assert tops.launch_counts()["bitonic_sort"] == 1
+        for j in range(32):
+            assert torch.equal(got[j], tref.sort_blocks(
+                keys[j], block, tbs.SENTINELS[keys.dtype]))
+
+
 RMSNORM_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
                "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-4),

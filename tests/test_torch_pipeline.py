@@ -303,7 +303,9 @@ def test_batched_metrics_equal_serial():
     # sparsity is lifted: the first two candidates share one profile
     assert stats["compiles"] == 2 and stats["evals"] == 3
     assert set(stats) == {"hits", "misses", "compiles", "evictions",
-                          "cross_workload_hits", "entries", "evals"}
+                          "cross_workload_hits", "entries", "evals",
+                          "pop_hits", "pop_builds", "pop_entries",
+                          "compile_workers_max"}
 
 
 def test_generate_proxy_on_kmeans_end_to_end():
