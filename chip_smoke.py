@@ -111,6 +111,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    differs by a bit from a serial session's, a sweep proxy was profiled
    rather than read from the store, the server counted an error, or
    matmul, row moments or bitonic sort never launched;
+6g. scenarios: the cluster scenarios (``repro_torch.bench.scenario_matrix``
+   with ``--substrate hopper`` at the reference's defaults, scale 0.2,
+   8 iterations, scenarios single, dp2, dp4 and dp2_mp2), each run a
+   child process of ``SCENARIO_RANKS`` (4) ranks that share the card,
+   gloo between them, so every rank's launch counters start at 0
+   (``SCENARIO_RUNS``: K-means and PageRank re-tuned under each mesh
+   with the population bench and ``--check``, TeraSort with
+   ``--check``, AlexNet and Inception-V3 without it, their steps not
+   splitting on every mesh at that scale).  Logs each cell's collective
+   bytes by kind for the step and the proxy and how each wall was
+   taken, and each rank's launches and device-memory peak.  Fails if a
+   run fails its checks, a multi-device proxy moves no collective, a
+   step moves collective bytes exactly when its inputs do not split,
+   ``single`` differs from the serial engine by a bit, the hopper proxy
+   differs from the stock form on dp2, or a rank never launched a
+   kernel its workloads' proxies lower onto;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -129,7 +145,8 @@ times, each with its device ms, and each with its launches over every
 workload of phase 6b and its times at those workloads' shapes, its
 launches over each workload of phase 6c, its launches over phase 6d
 as ``serve_launches``, its launches over each case of phase 6e as
-``case_studies_launches``, and, for the first three, its launches over
+``case_studies_launches``, for the first three its launches on each
+rank of each run of phase 6g as ``scenario_launches``, and, for the first three, its launches over
 one call a chunk of phase 6f (b) as ``population_launches`` and its
 phase 6f (a) rows as ``lane_forms``), the
 card's name and power limit, and
@@ -1624,6 +1641,117 @@ def phase_case_studies(torch, dev, work: Path) -> dict:
     return launches
 
 
+#: phase 6g's runs of ``repro_torch.bench.scenario_matrix`` (each starts
+#: ``SCENARIO_RANKS`` ranks that share the card, gloo between them), at
+#: the reference's defaults (``--scale 0.2 --iters 8``, the four default
+#: scenarios): (label, workloads, the run's own flags, whether it runs
+#: ``--check``, the kernels each rank must launch).  The re-tunes under
+#: each mesh run on K-means and PageRank, the population bench with
+#: them.  The AI workloads run without ``--check``: at scale 0.2
+#: AlexNet's batch of 25 divides no mesh and Inception-V3's of 6 not
+#: dp4's, so those steps run whole on every rank and move no collective,
+#: as the reference's do not, and the reference's gate "zero
+#: real-workload collective bytes" would fail them; this phase holds
+#: their other gates itself, and a step whose inputs split must move
+#: collective bytes.
+SCENARIO_RANKS = 4
+SCENARIO_COMMON = ["--scenarios", "single,dp2,dp4,dp2_mp2", "--scale", "0.2",
+                   "--iters", "8"]
+SCENARIO_RUNS = (
+    ("retune", "kmeans,pagerank", ["--tune-under-mesh", "--pop", "32"],
+     True, MAIN_PATH_KERNELS),
+    ("terasort", "terasort", ["--pop", "0"], True, ("bitonic_sort",)),
+    ("ai", "alexnet,inception_v3", ["--pop", "0"], False,
+     ("matmul", "row_moments")),
+)
+#: seconds one scenario run's ranks may take
+SCENARIO_TIMEOUT = 600
+
+
+def phase_scenarios(torch, dev, work: Path) -> dict:
+    """The cluster scenarios: ``scenario_matrix --device cuda --substrate
+    hopper`` (``SCENARIO_RUNS``), each run ``SCENARIO_RANKS`` ranks
+    sharing the card, its launch counters fresh in every rank.  Logs,
+    per workload and scenario, the collective bytes by kind of the step
+    and the proxy and how each wall was taken; per rank its kernel
+    launches and device-memory peak.  Fails if a run fails its
+    ``--check`` (nonzero collectives on every multi-device scenario,
+    ``single`` bit-identical to the serial engine, the re-tunes' and the
+    population bench's gates, the hopper proxy's outputs equal to the
+    stock form's on dp2); for the run without it, if any of those but
+    the step's collectives fails; if a step moved collective bytes
+    exactly when its inputs did not split; or if a rank of a run never
+    launched a kernel its workloads' proxies lower onto.  Returns ``{kernel:
+    {run: [launches per rank]}}``."""
+    import os
+
+    launches = {k: {} for k in MAIN_PATH_KERNELS}
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               REPRO_EMU_DEVICES=str(SCENARIO_RANKS))
+    for label, workloads, extra, check, kernels in SCENARIO_RUNS:
+        out = work / f"scenario_{label}.json"
+        cmd = ([sys.executable, "-m", "repro_torch.bench.scenario_matrix",
+                "--device", "cuda", "--substrate", "hopper", "--out",
+                str(out), "--timeout", str(SCENARIO_TIMEOUT), "--workloads",
+                workloads] + SCENARIO_COMMON + extra
+               + (["--check"] if check else []))
+        log(f"scenario run {label}: {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        rc = subprocess.run(cmd, env=env, timeout=SCENARIO_TIMEOUT + 60
+                            ).returncode
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise fail(f"scenario_matrix run {label} returned {rc} after "
+                       f"{seconds:.1f} s")
+        doc = json.loads(out.read_text())
+        log(f"scenario run {label}: {seconds:.1f} s, {doc['devices']} ranks")
+        for rec in doc["workloads"]:
+            name = rec["workload"]
+            for c in rec["per_scenario"]:
+                log(f"  {name}/{c['scenario']}: acc "
+                    f"{c['mean_accuracy']:.4f}; step collectives "
+                    f"{json.dumps(c['real_collectives'])} "
+                    f"({c['real_timing'].get('mode')}); proxy collectives "
+                    f"{json.dumps(c['proxy_collectives'])} "
+                    f"({c['proxy_timing'].get('mode')}); walls "
+                    f"{c['real_wall_s']} / {c['proxy_wall_s']} s")
+                mt = c.get("mesh_tuned")
+                if mt is not None:
+                    log(f"    mesh-tuned acc {mt['mean_accuracy']:.4f} "
+                        f"qual {mt['qualification_rate']:.2f} "
+                        f"-> {mt['selected']}")
+                multi = c["scenario"] != "single"
+                if multi and c["proxy_collective_bytes"] <= 0:
+                    raise fail(f"{name}/{c['scenario']}: no proxy "
+                               f"collective bytes")
+                if (c["real_collective_bytes"] > 0) != c["real_sharded"]:
+                    raise fail(f"{name}/{c['scenario']}: step collective "
+                               f"bytes {c['real_collective_bytes']} with "
+                               f"inputs split: {c['real_sharded']}")
+            sub = doc.get("substrate_parity", {}).get(name)
+            log(f"  {name}: parity {doc['parity'][name]}, hopper vs torch "
+                f"on dp2 {sub}")
+            if not doc["parity"][name]["bit_identical"]:
+                raise fail(f"{name}: single differs from the serial engine")
+            if sub is None or not sub["ok"]:
+                raise fail(f"{name}: the hopper proxy differs from the "
+                           f"stock form on dp2 ({sub})")
+        if "population_bench" in doc:
+            log(f"  population bench: {json.dumps(doc['population_bench'])}")
+        for r in doc["ranks"]:
+            log(f"  rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+                f"device memory peak allocated "
+                f"{r.get('max_allocated_bytes', 0) / 2**30:.2f} GiB, "
+                f"reserved {r.get('max_reserved_bytes', 0) / 2**30:.2f} GiB")
+            never = [k for k in kernels if r["launches"][k] == 0]
+            if never:
+                raise fail(f"scenario run {label}: rank {r['rank']} never "
+                           f"launched {never}")
+        for k in MAIN_PATH_KERNELS:
+            launches[k][label] = [r["launches"][k] for r in doc["ranks"]]
+    return launches
+
+
 #: the population phase's lane counts: two, and the evaluator's
 #: ``DEFAULT_EVAL_BATCH``, the most lanes one population call takes
 LANES = (2, 32)
@@ -1903,15 +2031,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,kernels,main,workloads,paper_repro,"
-                            "case_studies,population,serve,bench",
+                            "case_studies,population,serve,scenarios,bench",
                     help="comma list of env, kernels, main (main includes "
                          "the checks and main-path shapes), workloads (the "
                          "other four workloads), paper_repro (the sweep of "
                          "all five from BASE_P), case_studies (the paper's "
                          "§IV), population (the population form and "
                          "tuner_bench; needs main), serve (the proxy "
-                         "server; needs paper_repro), bench (needs "
-                         "kernels)")
+                         "server; needs paper_repro), scenarios (the "
+                         "cluster scenarios on ranks sharing the card), "
+                         "bench (needs kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     if "bench" in phases and "kernels" not in phases:
@@ -1976,6 +2105,10 @@ def main(argv=None) -> int:
         if "serve" in phases:
             serve_launches = timed("serve", phase_serve, torch, dev, work,
                                    proxies)
+        scenario_launches = {}
+        if "scenarios" in phases:
+            scenario_launches = timed("scenarios", phase_scenarios, torch,
+                                      dev, work)
     if "bench" in phases:
         entries += timed("bench", phase_bench, torch, dev, kernel_rows)
     for e in entries:  # the other workloads' paths, beside the main one
@@ -1984,6 +2117,7 @@ def main(argv=None) -> int:
         e["paper_repro_launches"] = {w: c[e["name"]]
                                      for w, c in paper_launches.items()}
         e["serve_launches"] = serve_launches.get(e["name"])
+        e["scenario_launches"] = scenario_launches.get(e["name"])
         e["case_studies_launches"] = {c: n[e["name"]]
                                       for c, n in case_launches.items()}
         e["population_launches"] = population["population_launches"].get(

@@ -1,7 +1,6 @@
 """The paper's contribution — data motifs -> proxy benchmark generation —
 ported to PyTorch.  Exports the reference's names as far as they are
-ported (of the cluster layer only its mesh-shape arithmetic; not the HLO
-parser)."""
+ported (not the HLO parser)."""
 from repro_torch.core.accuracy import (  # noqa: F401
     COLLECTIVE_METRICS,
     AccuracyReport,
@@ -12,15 +11,22 @@ from repro_torch.core.accuracy import (  # noqa: F401
 )
 from repro_torch.core.cluster import (  # noqa: F401
     QUANTIZED_FIELDS,
+    SCENARIOS,
     ClusterError,
+    ClusterScenario,
     axis_quantum,
     batch_quantum,
+    get_scenario,
     make_quantizer,
     mesh_structural_key,
     mesh_task_quantum,
     model_quantum,
     quantize_proxy,
+    register_scenario,
+    shard_args,
+    shrink_scenario,
     trend_consistency,
+    workload_signature,
 )
 from repro_torch.core.decompose import (  # noqa: F401
     COLLECTIVE_TO_MOTIF,

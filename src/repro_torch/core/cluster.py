@@ -1,37 +1,300 @@
-"""Cluster scenarios — the mesh-shape arithmetic of the paper's "changing
-cluster configurations" axis (§III-D) and its trend-consistency score
-(§III-E); port of the pure parts of ``repro/core/cluster.py``.
+"""Cluster scenarios — the paper's "changing cluster configurations" axis
+(§III-D) and cross-architecture trend consistency (§III-E); port of
+``repro/core/cluster.py`` onto ``torch.distributed``.
+
+A :class:`ClusterScenario` names one point of the paper's evaluation
+grid: device count x mesh shape x input-data scale.  Its mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the first
+``device_count`` ranks of the process group (every rank runs the same
+program, SPMD; ranks outside a scenario's mesh skip its cells).  Both the
+real workload ``step`` and the proxy's eval form run sharded over that
+mesh through one logical-axis rule table
+(:mod:`repro_torch.distributed.sharding`):
+
+* workload inputs place their leading dim by the per-argument logical
+  axes on the :class:`~repro_torch.workloads.base.Workload`
+  (``input_axes``), resolved to DTensor placements by :func:`shard_args`;
+* proxy motif inputs take the same ``"batch"`` logical axis inside the
+  proxy runner (``proxy_graph._shard_batch``), so the sharded motifs emit
+  collectives and the profiled :class:`~repro_torch.core.signature.
+  Signature` carries nonzero ``collective_bytes``, the paper's
+  network/disk-I/O analog.
+
+The single-device scenario has **no mesh at all**
+(:meth:`ClusterScenario.mesh` returns ``None``): every sharding hook is
+the identity without an active mesh, so the 1-device scenario is the
+single-device path bit for bit.
 
 A mesh is read only through its axis names and per-axis sizes
-(:func:`repro_torch.distributed.sharding.mesh_axes`): a
-``torch.distributed.device_mesh.DeviceMesh`` or a stand-in such as
-:class:`~repro_torch.distributed.sharding.MeshShape`.  From them come:
+(:func:`repro_torch.distributed.sharding.mesh_axes`), so the arithmetic
+below (:func:`mesh_structural_key`, the quanta, :func:`quantize_proxy`)
+also takes a stand-in such as
+:class:`~repro_torch.distributed.sharding.MeshShape`.
 
-* :func:`mesh_structural_key`, a mesh's part of a cache key;
-* the divisibility quanta (:func:`axis_quantum`, :func:`batch_quantum`,
-  :func:`model_quantum`, :func:`mesh_task_quantum`);
-* the tuner's candidate-rounding rule (:func:`quantize_proxy`,
-  :func:`make_quantizer`), which rounds the ``QUANTIZED_FIELDS`` up to
-  the batch quantum;
-* :func:`trend_consistency`: do proxy metrics move the way real metrics
-  move across scenarios?
+Under SPMD every rank of a mesh must agree on what it measured, or the
+tuners of different ranks would walk different trees and deadlock in a
+collective: :func:`agree` gives every rank the mesh's first rank's
+profile, and the wall time of a sharded program is the maximum over the
+mesh's ranks (:func:`repro_torch.core.signature.timed_wall`), since an
+SPMD step ends with its slowest rank.
 
-Not ported yet (they need real sharded execution): ``ClusterScenario``,
-``SCENARIOS``, ``shrink_scenario``, ``shard_args`` and
-``workload_signature``.
+:func:`trend_consistency` scores the §III-D/§III-E claim itself.
 """
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.distributed.sharding import ShardingRules, mesh_axes
+from repro_torch.distributed.sharding import (
+    ShardingRules,
+    mesh_axes,
+    place,
+    resolve_spec,
+    use_mesh,
+)
+from repro_torch.distributed.spmd import settle
+
+#: how many ranks a program starts when it sets up its own process group
+#: (``bench/scenario_matrix.py``), the reference's variable
+EMU_DEVICES_ENV = "REPRO_EMU_DEVICES"
 
 
 class ClusterError(ValueError):
     """Bad scenario definition or scenario/host mismatch."""
+
+
+@dataclass(frozen=True)
+class ClusterScenario:
+    """One cluster configuration of the paper's §III-D evaluation grid.
+
+    ``device_count`` is redundant with ``prod(mesh_shape)`` on purpose:
+    construction fails loudly when the mesh shape does not factor it (the
+    "indivisible mesh" error).  ``data_scale`` multiplies the workload's
+    input scale — the paper grows the data with the cluster."""
+
+    name: str
+    device_count: int
+    mesh_shape: Tuple[int, ...] = ()
+    axis_names: Tuple[str, ...] = ("data",)
+    data_scale: float = 1.0
+    description: str = ""
+
+    def __post_init__(self):
+        shape = self.mesh_shape or (self.device_count,)
+        object.__setattr__(self, "mesh_shape", tuple(int(s) for s in shape))
+        if self.device_count < 1 or any(s < 1 for s in self.mesh_shape):
+            raise ClusterError(
+                f"{self.name}: device_count and mesh dims must be >= 1")
+        if len(self.mesh_shape) != len(self.axis_names):
+            raise ClusterError(
+                f"{self.name}: mesh_shape {self.mesh_shape} needs "
+                f"{len(self.mesh_shape)} axis names, got {self.axis_names}")
+        if math.prod(self.mesh_shape) != self.device_count:
+            raise ClusterError(
+                f"{self.name}: mesh shape {self.mesh_shape} does not factor "
+                f"device_count={self.device_count} (indivisible mesh)")
+
+    # -------------------------------------------------------------------
+    def mesh(self, device_type: Optional[str] = None):
+        """The scenario's ``DeviceMesh`` over the first ``device_count``
+        ranks of the default process group, or ``None`` for the
+        single-device scenario (every sharding hook is then the
+        identity).
+
+        Raises :class:`ClusterError` when the process group has fewer
+        ranks than the scenario needs (no group counts as one rank).
+        Building a mesh creates process groups, a collective call: every
+        rank must call this for the same scenarios in the same order.
+        Meshes are kept by (device type, shape, names), so a second call
+        returns the first one's mesh.  ``device_type`` defaults to
+        ``"cuda"`` when the process has a CUDA device, else ``"cpu"``."""
+        if self.device_count == 1:
+            return None
+        dist = torch.distributed
+        world = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 1)
+        if world < self.device_count:
+            raise ClusterError(
+                f"scenario {self.name!r} needs {self.device_count} ranks "
+                f"but the process group has {world}; start "
+                f"{self.device_count} or more ranks (scenario_matrix "
+                f"starts {EMU_DEVICES_ENV} of them)")
+        if device_type is None:
+            device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        key = (device_type, self.mesh_shape, self.axis_names)
+        if key not in _MESHES:
+            _MESHES[key] = _build_mesh(device_type, self.mesh_shape,
+                                       self.axis_names)
+        return _MESHES[key]
+
+
+#: (device type, mesh shape, axis names) -> DeviceMesh, built once a
+#: process
+_MESHES: Dict[Tuple, Any] = {}
+#: ranks (a tuple) -> the process group over them
+_GROUPS: Dict[Tuple[int, ...], Any] = {}
+
+
+def _build_mesh(device_type: str, shape: Tuple[int, ...],
+                names: Tuple[str, ...]):
+    """A DeviceMesh over ranks ``0 .. prod(shape) - 1``, plus one process
+    group over all of them (:func:`mesh_group`).  Collective: every rank
+    calls it, in the same order."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = math.prod(shape)
+    ranks = tuple(range(n))
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = (torch.distributed.group.WORLD
+                          if n == torch.distributed.get_world_size()
+                          else torch.distributed.new_group(list(ranks)))
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def mesh_ranks(mesh) -> Tuple[int, ...]:
+    """The global ranks of a ``DeviceMesh``, in mesh order."""
+    return tuple(int(r) for r in mesh.mesh.flatten().tolist())
+
+
+def mesh_group(mesh):
+    """The process group over every rank of ``mesh``: the default group
+    when the mesh spans it, else the group :meth:`ClusterScenario.mesh`
+    made with it."""
+    ranks = mesh_ranks(mesh)
+    if len(ranks) == torch.distributed.get_world_size():
+        return torch.distributed.group.WORLD
+    if tuple(sorted(ranks)) not in _GROUPS:
+        raise ClusterError(f"no process group over ranks {ranks}: build "
+                           f"the mesh with ClusterScenario.mesh()")
+    return _GROUPS[tuple(sorted(ranks))]
+
+
+def in_mesh(mesh) -> bool:
+    """Whether this process is one of ``mesh``'s ranks (``None``, the
+    single-device scenario, has every rank)."""
+    return mesh is None or torch.distributed.get_rank() in mesh_ranks(mesh)
+
+
+def agree(obj: Any, mesh) -> Any:
+    """The mesh's first rank's ``obj`` on every rank of ``mesh`` (one
+    object broadcast); ``obj`` itself without a mesh."""
+    if mesh is None:
+        return obj
+    box = [obj]
+    torch.distributed.broadcast_object_list(
+        box, src=mesh_ranks(mesh)[0], group=mesh_group(mesh))
+    return box[0]
+
+
+def mesh_max(value: float, mesh) -> float:
+    """The largest ``value`` over the ranks of ``mesh`` (``value``
+    without a mesh): an SPMD step ends with its slowest rank."""
+    if mesh is None:
+        return value
+    out = [None] * len(mesh_ranks(mesh))
+    torch.distributed.all_gather_object(out, value, group=mesh_group(mesh))
+    return max(out)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+SCENARIOS: "OrderedDict[str, ClusterScenario]" = OrderedDict()
+
+
+def register_scenario(s: ClusterScenario) -> ClusterScenario:
+    SCENARIOS[s.name] = s
+    return s
+
+
+def get_scenario(name: str) -> ClusterScenario:
+    if name not in SCENARIOS:
+        raise ClusterError(
+            f"unknown scenario {name!r}; have {sorted(SCENARIOS)}")
+    return SCENARIOS[name]
+
+
+register_scenario(ClusterScenario(
+    "single", 1, (1,), ("data",),
+    description="the legacy single-device path (no mesh at all)"))
+register_scenario(ClusterScenario(
+    "dp2", 2, (2,), ("data",),
+    description="2-way data parallelism"))
+register_scenario(ClusterScenario(
+    "dp4", 4, (4,), ("data",),
+    description="4-way data parallelism"))
+register_scenario(ClusterScenario(
+    "dp2xmp2", 4, (2, 2), ("data", "model"),
+    description="2-way data x 2-way model mesh"))
+register_scenario(ClusterScenario(
+    "dp2_mp2", 4, (2, 2), ("data", "model"),
+    description="2-way data x 2-way model mesh (canonical 2-D scenario "
+                "name; same topology as dp2xmp2)"))
+register_scenario(ClusterScenario(
+    "dp4_mp2", 8, (4, 2), ("data", "model"),
+    description="4-way data x 2-way model mesh (larger emulated hosts)"))
+register_scenario(ClusterScenario(
+    "dp2_mp1", 2, (2, 1), ("data", "model"),
+    description="degenerate 2-D mesh: 2-way data x 1-way model — the "
+                "2-device 2-D scenario CI smoke can afford; exercises "
+                "the data x model axis plumbing with a unit model axis"))
+register_scenario(ClusterScenario(
+    "dp1_mp2", 2, (1, 2), ("data", "model"),
+    description="degenerate 2-D mesh: 1-way data x 2-way model — all "
+                "parallelism on the model axis, zero batch quantum "
+                "growth (stress tier: the 1xN hostile topology)"))
+register_scenario(ClusterScenario(
+    "dp2_2xdata", 2, (2,), ("data",), data_scale=2.0,
+    description="2 devices with doubled input data (paper: data grows "
+                "with the cluster)"))
+register_scenario(ClusterScenario(
+    "dp2_4xdata", 2, (2,), ("data",), data_scale=4.0,
+    description="2 devices with quadrupled input data — a second "
+                "2-device point so trend consistency over mesh-tuned "
+                "proxies can run on 2-device CI hosts"))
+register_scenario(ClusterScenario(
+    "dp4_2xdata", 4, (4,), ("data",), data_scale=2.0,
+    description="4-way data parallelism with doubled input data"))
+register_scenario(ClusterScenario(
+    "dp8", 8, (8,), ("data",),
+    description="8-way data parallelism (larger emulated hosts)"))
+
+
+def shrink_scenario(scn: ClusterScenario, drop: int = 1,
+                    name: Optional[str] = None) -> ClusterScenario:
+    """The changing-cluster repro: ``scn`` minus ``drop`` devices.
+
+    The shrunken scenario keeps the axis names and every non-leading axis
+    size (model parallelism is a property of the program); only the
+    leading (data) axis absorbs the loss.  Raises :class:`ClusterError`
+    when the remaining device count cannot keep the non-leading axes."""
+    n = scn.device_count - int(drop)
+    if n < 1:
+        raise ClusterError(
+            f"cannot drop {drop} of {scn.device_count} devices from "
+            f"scenario {scn.name!r}: no devices would remain")
+    rest = scn.mesh_shape[1:]
+    rest_prod = int(math.prod(rest)) if rest else 1
+    if n % rest_prod:
+        raise ClusterError(
+            f"cannot shrink scenario {scn.name!r} from "
+            f"{scn.device_count} to {n} devices: the non-leading mesh "
+            f"axes {dict(zip(scn.axis_names[1:], rest))} need device "
+            f"counts divisible by {rest_prod}; re-tune under an "
+            f"explicit ({n},)-shaped scenario instead")
+    shape = (n // rest_prod,) + rest
+    return ClusterScenario(
+        name or f"{scn.name}_minus{drop}", n, shape, scn.axis_names,
+        scn.data_scale,
+        description=f"{scn.name} after losing {drop} device(s): "
+                    f"mesh {scn.mesh_shape} -> {shape}")
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +389,140 @@ def make_quantizer(mesh, rules: Optional[ShardingRules] = None):
     if batch_quantum(mesh, rules) <= 1:
         return None
     return lambda pb: quantize_proxy(pb, mesh, rules)
+
+
+# ---------------------------------------------------------------------------
+# Workload-side sharding
+# ---------------------------------------------------------------------------
+
+
+def _is_placements(tree) -> bool:
+    return (isinstance(tree, tuple) and len(tree) > 0
+            and all(hasattr(p, "is_replicate") for p in tree))
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts, lists and tuples; a tuple
+    of DTensor placements is one leaf."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_placements(tree):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def shard_args(args: Sequence[Any], input_axes: Sequence[Optional[str]],
+               mesh, rules: Optional[ShardingRules] = None):
+    """Per-argument placements for a workload ``step``, or ``None``
+    without a mesh.
+
+    ``input_axes[i]`` names the logical axis of argument i's *leading*
+    dim (``"batch"`` for data-parallel inputs, ``None`` for replicated
+    state like parameters); the rule table maps it onto the mesh.  Every
+    tensor leaf of an argument (a dict of parameters, say) takes the
+    argument's axis; scalars and indivisible dims replicate.  Each entry
+    mirrors its argument's structure with a placements tuple a leaf."""
+    if mesh is None:
+        return None
+    rules = rules or ShardingRules()
+    axes = list(input_axes) + [None] * (len(args) - len(input_axes))
+
+    def placements_for(leaf, logical):
+        shape = tuple(getattr(leaf, "shape", ()) or ())
+        if not shape or logical is None:
+            return resolve_spec((), (), mesh, rules)
+        return resolve_spec(shape, (logical,) + (None,) * (len(shape) - 1),
+                            mesh, rules)
+
+    return tuple(
+        _tree_map(lambda leaf, lg=logical: placements_for(leaf, lg), arg)
+        for arg, logical in zip(args, axes))
+
+
+def place_args(args: Sequence[Any], placements: Sequence[Any], mesh):
+    """``args`` as DTensors by :func:`shard_args`' placements: each rank
+    keeps its own slice of every leaf (no collective).  A workload whose
+    arguments all replicate runs on plain tensors: every rank then runs
+    the whole step, which needs no collective either."""
+    flat = []
+    _tree_map(flat.append, tuple(placements))
+    if all(all(p.is_replicate() for p in pl) for pl in flat):
+        return tuple(args)
+
+    def walk(arg, pl):
+        if isinstance(arg, dict):
+            return {k: walk(arg[k], pl[k]) for k in arg}
+        if isinstance(arg, (list, tuple)) and not _is_placements(pl):
+            return type(arg)(walk(a, p) for a, p in zip(arg, pl))
+        if isinstance(arg, torch.Tensor):
+            return place(arg, mesh, pl)
+        return arg
+
+    return tuple(walk(a, p) for a, p in zip(args, placements))
+
+
+def splits_inputs(args: Sequence[Any], input_axes: Sequence[Optional[str]],
+                  mesh, rules: Optional[ShardingRules] = None) -> bool:
+    """Whether any input leaf of a ``step`` splits on ``mesh`` (False
+    without a mesh, or when every leading dim is indivisible: the step
+    then runs whole on every rank and moves no collective)."""
+    if mesh is None:
+        return False
+    flat = []
+    _tree_map(flat.append, shard_args(args, input_axes, mesh, rules))
+    return any(p.is_shard() for pl in flat for p in pl)
+
+
+def workload_signature(step, args: Sequence[Any],
+                       input_axes: Sequence[Optional[str]] = (),
+                       mesh=None, *, run: bool = True, iters: int = 5,
+                       rules: Optional[ShardingRules] = None):
+    """Signature of ``step(*args)`` under one cluster scenario.
+
+    With ``mesh=None`` this is exactly ``signature_of_call`` — the
+    single-device profile.  With a mesh, inputs are placed per
+    ``input_axes`` and the profile is one rank's (the mesh's first rank's,
+    on every rank: :func:`agree`), carrying the collectives the sharded
+    step issued, partial sums among its outputs all-reduced as an SPMD
+    program's are; the wall time is the slowest rank's.  A step whose
+    inputs all stay whole (:func:`splits_inputs`) runs unsharded on every
+    rank and keeps the single-device timing."""
+    from repro_torch.core.signature import profile_call, timed_wall
+
+    if mesh is None:
+        from repro_torch.core.signature import signature_of_call
+
+        return signature_of_call(step, *args, run=run, iters=iters)
+    device = _first_device(args)
+    if not splits_inputs(args, input_axes, mesh, rules):
+        # nothing divides: every rank runs the whole step, unsharded
+        from repro_torch.core.signature import signature_of_call
+
+        sig = signature_of_call(step, *args, run=run, iters=iters)
+        wall = None if sig.wall_time is None else mesh_max(sig.wall_time,
+                                                           mesh)
+        sig = agree(sig, mesh)
+        sig.wall_time = wall
+        return sig
+    placed = place_args(args, shard_args(args, input_axes, mesh, rules),
+                        mesh)
+
+    def sharded():  # its outputs as an SPMD program returns them
+        return settle(step(*placed))
+
+    with use_mesh(mesh, rules):
+        sig = agree(profile_call(sharded, device=device), mesh)
+        if run:
+            sig.wall_time, sig.timing = timed_wall(sharded, iters=iters,
+                                                   device=device)
+    return sig
+
+
+def _first_device(args) -> torch.device:
+    found = []
+    _tree_map(lambda t: found.append(t.device)
+              if isinstance(t, torch.Tensor) else None, tuple(args))
+    return found[0] if found else torch.device("cpu")
 
 
 # ---------------------------------------------------------------------------

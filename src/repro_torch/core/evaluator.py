@@ -34,7 +34,16 @@ population form cannot be vmapped — an op with no batching rule, which
 functorch would otherwise run once a lane in silence, or a host read —
 runs lane by lane and says why.
 
-Not ported yet: the reference's mesh and rules arguments.
+A ``mesh`` (a ``DeviceMesh``, one cluster scenario) pins an engine to
+that scenario: its structural key joins every cache key, each shape
+class is profiled and timed under :func:`~repro_torch.distributed.
+sharding.use_mesh` with the engine's ``rules`` (the proxy's inputs
+sharded, its collectives in the profile), every rank of the mesh takes
+the first rank's profile and the slowest rank's wall, and the profiling
+pool is one thread, so every rank issues its collectives in one order.
+The population form splits its lanes across the mesh's ranks instead:
+lanes are independent, so each rank runs its share and the walls are
+gathered.  ``mesh=None`` is the single-device path, its keys unchanged.
 """
 from __future__ import annotations
 
@@ -51,6 +60,8 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
 import torch
 
 from repro_torch.core.accuracy import normalized_vector
+from repro_torch.core.cluster import (agree, mesh_max, mesh_ranks,
+                                      mesh_structural_key)
 from repro_torch.core.motifs.base import (
     DEFAULT_EVAL_BATCH,
     DEFAULT_EVAL_CACHE,
@@ -63,6 +74,7 @@ from repro_torch.core.signature import (Signature, profile_call, timed_wall,
                                         where_raised)
 from repro_torch.core.store import canonical_key, device_key, key_digest
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import use_mesh
 
 
 def _clamp(v: int, bounds: Tuple[int, int]) -> int:
@@ -126,9 +138,18 @@ class ExecutableCache:
     served."""
 
     def __init__(self, capacity: int = DEFAULT_EVAL_CACHE,
-                 device: DeviceLike = None, store=None, telemetry=None):
+                 device: DeviceLike = None, store=None, telemetry=None,
+                 mesh=None, rules=None):
         self.capacity = _clamp(capacity, EVAL_CACHE_BOUNDS)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        #: logical-axis rule table programs run under (None = the default
+        #: table); a custom table joins the mesh side of the key
+        self.rules = rules
+        self.mesh_key = mesh_structural_key(mesh)
+        if mesh is not None and rules is not None:
+            self.mesh_key = self.mesh_key + (
+                ("__rules__",) + rules.structural_key(),)
         self.store = store
         self.device_key = device_key(self.device)
         #: telemetry hub: cache.hit / cache.store_hit / cache.store_invalid
@@ -153,7 +174,13 @@ class ExecutableCache:
 
     def key_for(self, pb: ProxyBenchmark,
                 include_repeats: bool = True) -> Tuple:
-        return pb.shape_signature(include_repeats)
+        """``pb``'s cache key under this cache's cluster scenario: the
+        shape signature, plus the mesh's structural key when a mesh is
+        bound (the same graph on another mesh is another program)."""
+        sig = pb.shape_signature(include_repeats)
+        if self.mesh_key is None:
+            return sig
+        return sig + (self.mesh_key,)
 
     def store_key(self, sig_key: Tuple) -> Tuple:
         """The persistent key of an in-memory key: the device key
@@ -260,7 +287,10 @@ class ExecutableCache:
             vals = pb.lifted_values(self.device)
             fn = pb.build_eval_fn(self.device)
         with tel.span("eval.compile", key=kd):
-            sig = profile_call(fn, seed, vals)
+            # use_mesh is per thread: entered here, in the worker
+            with use_mesh(self.mesh, self.rules):
+                sig = agree(profile_call(fn, seed, vals, device=self.device),
+                            self.mesh)
         with self._compiles_lock:
             self.compiles += 1
         return CacheEntry(fn=fn, lifted_example=vals, signature=sig,
@@ -428,14 +458,22 @@ class BatchEvaluator:
                  max_batch: int = DEFAULT_EVAL_BATCH,
                  compile_workers: Optional[int] = None,
                  wall_iters: int = 5,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 mesh=None,
+                 rules=None):
         self.run = run
         self.metrics = list(metrics) if metrics is not None else None
         self.seed = seed
         self.cache = (cache if cache is not None
-                      else ExecutableCache(capacity, device=device))
+                      else ExecutableCache(capacity, device=device,
+                                           mesh=mesh, rules=rules))
         if device is not None and resolve_device(device) != self.cache.device:
             raise ValueError("shared cache was built for another device")
+        # equality, not identity: equal meshes partition identically
+        if cache is not None and mesh is not None and cache.mesh != mesh:
+            raise ValueError(
+                "shared cache was built for a different mesh; one engine "
+                "serves one cluster scenario")
         # a run=True engine only accepts store entries with measured wall
         # time (and vice versa) — see ExecutableCache._store_lookup
         self.cache.need_wall = self.cache.need_wall or run
@@ -454,6 +492,14 @@ class BatchEvaluator:
     @property
     def device(self) -> torch.device:
         return self.cache.device
+
+    @property
+    def mesh(self):
+        return self.cache.mesh
+
+    @property
+    def rules(self):
+        return self.cache.rules
 
     @property
     def telemetry(self):
@@ -509,6 +555,8 @@ class BatchEvaluator:
         ``min(os.cpu_count(), n_missing)`` when auto (0).  The widest
         used is the ``compile_workers_max`` gauge of :meth:`stats`."""
         workers = self.compile_workers or (os.cpu_count() or 1)
+        if self.mesh is not None:
+            workers = 1  # every rank must issue its collectives in order
         effective = max(min(workers, n_missing), 1)
         if n_missing > 0:
             self.workers_used = max(self.workers_used, effective)
@@ -525,7 +573,8 @@ class BatchEvaluator:
                     and entry.sig_key is not None):
                 entry.key_attr = _key_attr(entry.sig_key)
             with tel.span("eval.execute", key=entry.key_attr or "",
-                          iters=self.wall_iters):
+                          iters=self.wall_iters), \
+                    use_mesh(self.mesh, self.rules):
                 entry.wall_time, entry.signature.timing = timed_wall(
                     lambda: entry.fn(self.seed, entry.lifted_example),
                     iters=self.wall_iters, device=self.device)
@@ -564,7 +613,13 @@ class BatchEvaluator:
         chunks, the class and candidate counts, the builds, ``devices``
         (1: no mesh) and ``modes``: each class's mode by its key digest,
         ``{"mode": "vmap"}`` or ``{"mode": "lanes", "reason": ...}``,
-        with how its wall was taken under ``"timing"``."""
+        with how its wall was taken under ``"timing"``.
+
+        With a mesh the lanes split across its ranks: each chunk is
+        padded (repeating its last row) to a multiple of the rank count,
+        each rank runs its contiguous share of the lanes (no collective
+        inside: lanes are independent), and a chunk's wall is the
+        slowest rank's; ``devices`` is the rank count."""
         total = 0.0
         builds = self.pop_registry.builds
         modes: Dict[str, Dict[str, Any]] = {}
@@ -573,13 +628,25 @@ class BatchEvaluator:
             classes.add(chunk.key)
             wall, timing = timed_wall(chunk.runner(self.seed), iters=iters,
                                       device=self.device)
-            total += wall
+            total += mesh_max(wall, self.mesh)
             modes[_key_attr(chunk.key)] = {**chunk.entry.mode,
                                            "timing": timing}
         return {"wall_time": total, "classes": len(classes),
                 "candidates": len(pbs),
                 "compiles": self.pop_registry.builds - builds,
-                "devices": 1, "modes": modes}
+                "devices": len(mesh_ranks(self.mesh)) if self.mesh else 1,
+                "modes": modes}
+
+    def lane_share(self, n: int) -> Tuple[int, int]:
+        """``(lo, hi)``: the lanes of an ``n``-lane chunk this rank runs,
+        and the padded chunk's lane count is a multiple of the mesh's
+        rank count (all of ``[0, n)`` without a mesh)."""
+        if self.mesh is None:
+            return 0, n
+        ranks = mesh_ranks(self.mesh)
+        per = -(-n // len(ranks))
+        i = ranks.index(torch.distributed.get_rank())
+        return i * per, (i + 1) * per
 
     def population_chunks(self, pbs: Sequence[ProxyBenchmark]
                           ) -> Iterator[PopulationChunk]:
@@ -600,6 +667,10 @@ class BatchEvaluator:
             for lo in range(0, len(members), self.max_batch):
                 chunk = members[lo:lo + self.max_batch]
                 rows = [[n.p.lifted_row() for n in pb.nodes] for pb in chunk]
+                if self.mesh is not None:  # this rank's lanes, padded
+                    a, b = self.lane_share(len(rows))
+                    rows = (rows + [rows[-1]] * (b - len(rows)))[a:b]
+                    chunk = (chunk + [chunk[-1]] * (b - len(chunk)))[a:b]
                 yield PopulationChunk(
                     class_key, entry, chunk, rows,
                     torch.tensor(rows, dtype=torch.float32, device=dev))
@@ -654,15 +725,20 @@ class EvalSession:
                  substrate: str = "torch",
                  store=None,
                  telemetry=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 mesh=None,
+                 rules=None):
         if substrate not in SUBSTRATES:
             raise ValueError(f"unknown substrate {substrate!r} "
                              f"(have {SUBSTRATES})")
         #: persistent cross-process store; in-memory misses consult it
-        #: before profiling and finalized entries write through
+        #: before profiling and finalized entries write through.  One
+        #: store may back sessions on several meshes: the mesh is in the
+        #: key
         self.store = store
         self.cache = ExecutableCache(capacity, device=device, store=store,
-                                     telemetry=telemetry)
+                                     telemetry=telemetry, mesh=mesh,
+                                     rules=rules)
         self.pop_registry = PopulationRegistry(capacity)
         #: default for generate_proxy(..., priors=None) calls routed
         #: through this session
@@ -684,6 +760,16 @@ class EvalSession:
     @property
     def device(self) -> torch.device:
         return self.cache.device
+
+    @property
+    def mesh(self):
+        """The cluster scenario's mesh this session is pinned to (None:
+        the single-device path)."""
+        return self.cache.mesh
+
+    @property
+    def rules(self):
+        return self.cache.rules
 
     @property
     def telemetry(self):

@@ -9,7 +9,9 @@
 5. return the qualified :class:`ProxyBenchmark` + report (accuracy,
    speedup — the paper's Table VI / Fig. 4 quantities).
 
-The reference's ``mesh`` argument has no counterpart in the port yet.
+``mesh`` tunes the proxy under one cluster scenario
+(:mod:`repro_torch.core.cluster`): candidates run sharded, the mesh's
+quantize rule rounds every candidate, and the priors see the mesh.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core.accuracy import (
     compare,
     normalized_vector,
 )
+from repro_torch.core.cluster import make_quantizer
 from repro_torch.core.decompose import MotifHint, decompose
 from repro_torch.core.evaluator import BatchEvaluator, EvalSession, counter_delta
 from repro_torch.core.motifs.base import DEFAULT_EVAL_CACHE, SUBSTRATES, PVector
@@ -144,6 +147,7 @@ def generate_proxy(
     session: Optional[EvalSession] = None,
     cache_capacity: int = DEFAULT_EVAL_CACHE,
     compile_workers: Optional[int] = None,
+    mesh: Any = None,
     priors: Any = None,
     substrate: Optional[str] = None,
     device: DeviceLike = None,
@@ -167,10 +171,25 @@ def generate_proxy(
     ``compile_workers`` sizes the profiling pool of the engine this call
     builds (``None``: auto, see :class:`BatchEvaluator`).
 
+    ``mesh`` tunes the proxy under a cluster scenario: candidates run
+    sharded over the mesh (a ``DeviceMesh``), so collective-byte
+    fractions join the tunable signature; a target profiled under the
+    same scenario (:func:`repro_torch.core.cluster.workload_signature`,
+    passed as ``target_signature``) seeds collective fractions into the
+    decomposition, and the mesh's quantize rule
+    (:func:`repro_torch.core.cluster.make_quantizer`) rounds every
+    candidate the tuner scores, so ``report.qualification_rate`` is 1.0.
+    With a shared ``session``/``evaluator`` the engine's own mesh wins
+    and must agree; a mesh-bound session's mesh drives the quantize rule
+    even when ``mesh`` is ``None``.  Every rank of the mesh runs this
+    call in step.
+
     ``priors`` seeds the adjusting stage with analytic elasticities
     (:mod:`repro_torch.core.priors`): ``True`` derives the table from the
-    decomposed proxy; a :class:`PriorTable` is used as-is; ``None``
-    inherits a session's ``priors`` flag, else runs the cold-start loop.
+    decomposed proxy (and, under a mesh, seeds each node's ``num_tasks``
+    from the mesh's axis sizes); a :class:`PriorTable` is used as-is;
+    ``None`` inherits a session's ``priors`` flag, else runs the
+    cold-start loop.
     """
     dev = resolve_device(device)
     if session is not None and evaluator is not None:
@@ -181,6 +200,11 @@ def generate_proxy(
         if evaluator.device != dev:
             raise ValueError(f"evaluator runs on {evaluator.device}, this "
                              f"call wants {dev}")
+        if mesh is not None and getattr(evaluator, "mesh", None) != mesh:
+            # equality, not identity: equal meshes partition identically
+            raise ValueError(
+                "mesh= disagrees with the shared evaluator/session's mesh; "
+                "build the EvalSession with mesh=... instead")
         if evaluator.run != run or evaluator.seed != seed:
             raise ValueError(
                 f"shared evaluator was built with run={evaluator.run}, "
@@ -215,13 +239,17 @@ def generate_proxy(
         evaluator = BatchEvaluator(run=run, seed=seed,
                                    capacity=cache_capacity,
                                    compile_workers=compile_workers,
-                                   device=dev)
+                                   device=dev, mesh=mesh)
+    # the effective scenario mesh: the argument, else the engine's; its
+    # rounding rule (under the engine's rule table) goes to the tuner
+    eff_mesh = mesh if mesh is not None else getattr(evaluator, "mesh", None)
+    quantize = make_quantizer(eff_mesh, getattr(evaluator, "rules", None))
     if priors is None:
         priors = bool(getattr(evaluator, "priors", False))
     prior_table: Optional[PriorTable] = None
     if priors is True:
-        pb0 = seed_num_tasks(pb0, None)  # identity without a mesh
-        prior_table = elasticity_priors(pb0, metric_names)
+        pb0 = seed_num_tasks(pb0, eff_mesh)  # identity without a mesh
+        prior_table = elasticity_priors(pb0, metric_names, mesh=eff_mesh)
     elif priors:
         prior_table = priors
     stats_before = evaluator.stats()
@@ -233,7 +261,7 @@ def generate_proxy(
         with scope:
             tuner = DecisionTreeTuner(evaluator, target_sel, tol=tol,
                                       max_iters=max_iters, seed=seed,
-                                      priors=prior_table)
+                                      priors=prior_table, quantize=quantize)
             result: TuneResult = tuner.tune(pb0)
             # the final report reuses this workload's cached profiles, so
             # it belongs inside the workload scope

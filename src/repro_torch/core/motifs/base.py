@@ -24,6 +24,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.data.generators import DataSpec
+from repro_torch.distributed.spmd import (is_dtensor, probe_sum,
+                                         replicate_dims, row_ways,
+                                         segment_add)
 from repro_torch.uint32 import bits, reinterpret, widen
 
 # ---------------------------------------------------------------------------
@@ -266,6 +269,9 @@ def _tree_checksum(tree) -> torch.Tensor:
     device = leaves[0].device if leaves else None
     acc = torch.zeros((), dtype=torch.float32, device=device)
     for l in leaves:
+        if is_dtensor(l):  # the rank holding the probe sums it
+            acc = acc + probe_sum(l, 8) * 1e-12
+            continue
         flat = l.reshape(-1)
         probe = flat[: min(flat.numel(), 8)]
         acc = acc + torch.sum(widen(probe).to(torch.float32)) * 1e-12
@@ -347,13 +353,19 @@ def chunked(p: PVector, x: torch.Tensor) -> torch.Tensor:
     tasks = max(min(p.num_tasks, max(n // chunk, 1)), 1)
     per = max(n // (tasks * chunk), 1)
     used = tasks * per * chunk
+    if is_dtensor(x) and tasks % row_ways(x):
+        # the task dim cannot take the row split: gather the rows first
+        x = replicate_dims(x, (0,))
     return x[:used].reshape((tasks, per, chunk) + tuple(x.shape[1:]))
 
 
 def segment_count(ids: torch.Tensor, n: int) -> torch.Tensor:
     """int32 occurrence count of each id in [0, n): ``jax.ops.segment_sum``
-    of ones, through ``index_add_``."""
+    of ones, through ``index_add_`` (sharded ids: each rank's counts,
+    all-reduced, :func:`repro_torch.distributed.spmd.segment_add`)."""
     out = torch.zeros(n, dtype=torch.int32, device=ids.device)
+    if is_dtensor(ids):
+        return segment_add(out, ids, torch.ones_like(ids.to_local()))
     return out.index_add_(0, ids.to(torch.int64), torch.ones_like(ids))
 
 
@@ -361,6 +373,8 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """Sum of ``vals`` per id in [0, n) (``index_add_``: on CUDA, float
     adds land through atomics, in no fixed order)."""
     out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+    if is_dtensor(ids):
+        return segment_add(out, ids, vals)
     return out.index_add_(0, ids.to(torch.int64), vals)
 
 

@@ -22,6 +22,7 @@ from repro_torch.core.motifs.base import (Motif, PVector, register,
                                           segment_count, segment_sum)
 from repro_torch.data.generators import gen_graph, make_generator
 from repro_torch.device import resolve_device
+from repro_torch.distributed.spmd import is_dtensor, segment_max
 
 _INT32_MIN = -(1 << 31)
 
@@ -74,9 +75,13 @@ class GraphMotif(Motif):
             dst64 = dst.to(torch.int64)
             for _ in range(iters):
                 active = frontier[src].to(torch.int32)
-                reached = torch.full((v,), _INT32_MIN, dtype=torch.int32,
-                                     device=src.device).scatter_reduce_(
-                    0, dst64, active, "amax", include_self=True)
+                floor = torch.full((v,), _INT32_MIN, dtype=torch.int32,
+                                   device=src.device)
+                if is_dtensor(dst64):
+                    reached = segment_max(floor, dst64, active)
+                else:
+                    reached = floor.scatter_reduce_(
+                        0, dst64, active, "amax", include_self=True)
                 frontier = frontier | reached.to(torch.bool)
             return {"visited": frontier,
                     "count": torch.sum(frontier, dtype=torch.int32)}

@@ -24,6 +24,7 @@ from repro_torch.core.motifs.base import (
 )
 from repro_torch.core.motifs.matrix import chunk_rows
 from repro_torch.core.motifs.sort import merge_rounds
+from repro_torch.distributed.spmd import is_dtensor, rows_op
 from repro_torch.kernels import ops
 from repro_torch.kernels.bitonic_sort import SENTINELS
 from repro_torch.uint32 import full, take, widen
@@ -129,7 +130,11 @@ def statistics_hopper(motif: Motif, p: PVector, inputs: Dict[str, Any],
         img = inputs["images"]
         ch_axis = img.ndim - 1 if p.layout == "NHWC" else 1
         xt = torch.movedim(img, ch_axis, 0)
-        mean, msq = ops.row_moments(xt.reshape(xt.shape[0], -1).contiguous())
+        if is_dtensor(xt):  # each rank's kernel on its own images
+            mean, msq = rows_op(ops.row_moments, xt)
+        else:
+            mean, msq = ops.row_moments(
+                xt.reshape(xt.shape[0], -1).contiguous())
         var = msq - torch.square(mean)
         bshape = [1] * img.ndim
         bshape[ch_axis] = img.shape[ch_axis]

@@ -61,16 +61,19 @@ class LogicMotif(Motif):
 
         bits = inputs["bits"]
         if v == "bitops":
+            # shifts through bitwise_right_shift, the op ``>>`` names:
+            # on a DTensor, torch 2.13's ``__rshift__`` returns its input
+            shr = torch.bitwise_right_shift
             x = widen(bits)  # int64 words in [0, 2^32)
-            x = x ^ (x >> 13)
+            x = x ^ shr(x, 13)
             x = (x * 0x5BD1E995) & _M32  # < 2^63: no int64 overflow
-            x = x ^ (x >> 15)
+            x = x ^ shr(x, 15)
             x = x | 1
             # popcount via SWAR
-            c = x - ((x >> 1) & 0x55555555)
-            c = (c & 0x33333333) + ((c >> 2) & 0x33333333)
-            c = (c + (c >> 4)) & 0x0F0F0F0F
-            pop = ((c * 0x01010101) & _M32) >> 24
+            c = x - (shr(x, 1) & 0x55555555)
+            c = (c & 0x33333333) + (shr(c, 2) & 0x33333333)
+            c = (c + shr(c, 4)) & 0x0F0F0F0F
+            pop = shr((c * 0x01010101) & _M32, 24)
             return {"hashed": narrow(x, bits.dtype),
                     "popcount": narrow(torch.sum(pop) & _M32, bits.dtype)}
 

@@ -21,6 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.motifs.base import Motif, PVector, register
 from repro_torch.data.generators import gen_images, gen_vectors, make_generator
+from repro_torch.distributed.spmd import (batch_conv, is_dtensor, local_op,
+                                         replicate_dims)
 from repro_torch.device import full_f32, resolve_device
 
 
@@ -34,18 +36,27 @@ def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
 
 def pad_same(x: torch.Tensor, window: Sequence[int], stride: int,
              value: float = 0.0) -> torch.Tensor:
-    """NCHW ``x`` padded for a ``"SAME"`` window of ``(kh, kw)``."""
+    """NCHW ``x`` padded for a ``"SAME"`` window of ``(kh, kw)``.  A
+    DTensor ``x`` is padded shard by shard, its spatial dims whole."""
     top, bottom = same_pads(x.shape[2], window[0], stride)
     left, right = same_pads(x.shape[3], window[1], stride)
     if top == bottom == left == right == 0:
         return x
+    if is_dtensor(x):
+        return local_op(lambda t: F.pad(t, (left, right, top, bottom),
+                                        value=value),
+                        replicate_dims(x, (2, 3)))
     return F.pad(x, (left, right, top, bottom), value=value)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
            padding: str = "SAME") -> torch.Tensor:
     """NCHW ``x`` by an OIHW filter, ``"SAME"`` or ``"VALID"`` as in
-    ``jax.lax.conv_general_dilated``."""
+    ``jax.lax.conv_general_dilated``.  Sharded (DTensor) operands run as
+    :func:`repro_torch.distributed.spmd.batch_conv`: each rank convolves
+    its batch shard with the whole filter."""
+    if is_dtensor(x) or is_dtensor(w):
+        return batch_conv(lambda a, b: conv2d(a, b, stride, padding), x, w)
     if padding == "SAME":
         x = pad_same(x, w.shape[2:], stride)
     with full_f32():

@@ -12,7 +12,9 @@ decomposition itself:
   -s`` per octave, where ``s`` is the node's estimated byte share;
 * under a cluster scenario the same holds for per-kind collective
   fractions through ``decompose.COLLECTIVE_TO_MOTIF``; without a mesh
-  those rows say nothing (``None``).
+  those rows say nothing (``None``);
+* under a mesh, :func:`seed_num_tasks` seeds every node's ``num_tasks``
+  from the mesh's axis sizes.
 
 :class:`repro_torch.core.tuner.DecisionTreeTuner` blends these priors
 with observed slopes through the update ``(c * prior + sum(observed)) /
@@ -20,7 +22,6 @@ with observed slopes through the update ``(c * prior + sum(observed)) /
 impact-analysis perturbations.  :data:`EMPTY_PRIORS` (no slopes, no
 covered params) drives the tuner bit-identically to ``priors=None``.
 
-Meshes are not ported yet: a non-``None`` mesh raises.
 """
 from __future__ import annotations
 
@@ -29,11 +30,13 @@ from dataclasses import dataclass, field
 from typing import Dict, FrozenSet, Mapping, Optional, Sequence, Tuple
 
 from repro_torch.core.accuracy import COLLECTIVE_KIND_FRACS
+from repro_torch.core.cluster import mesh_task_quantum
 from repro_torch.core.decompose import (
     COLLECTIVE_MOTIFS,
     COLLECTIVE_TO_MOTIF,
     OPCLASS_TO_MOTIF,
 )
+from repro_torch.core.motifs.base import TUNABLE_BOUNDS
 from repro_torch.core.proxy_graph import ProxyBenchmark
 
 __all__ = [
@@ -82,12 +85,6 @@ _LN2 = math.log(2.0)
 #: metric name -> collective kind
 _FRAC_TO_KIND: Mapping[str, str] = {name: kind
                                     for kind, name in COLLECTIVE_KIND_FRACS}
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported yet: the priors run without one")
 
 
 @dataclass(frozen=True)
@@ -162,7 +159,6 @@ def elasticity_priors(pb: ProxyBenchmark, metrics: Sequence[str],
     Per-node byte shares are estimated as ``repeats * data_size``.  A
     param is covered only when the table speaks for it on every selected
     metric."""
-    _no_mesh(mesh)
     loads = {n.id: float(max(n.p.repeats * n.p.data_size, 1))
              for n in pb.nodes}
     total = sum(loads.values()) or 1.0
@@ -186,7 +182,22 @@ def elasticity_priors(pb: ProxyBenchmark, metrics: Sequence[str],
 
 
 def seed_num_tasks(pb: ProxyBenchmark, mesh) -> ProxyBenchmark:
-    """Seed every node's ``num_tasks`` from the mesh's axis sizes; the
-    identity without a mesh (the only case the port has yet)."""
-    _no_mesh(mesh)
-    return pb
+    """Seed every node's ``num_tasks`` from the mesh's axis sizes.
+
+    A scenario with N device lanes (``mesh_task_quantum``, the product of
+    the mesh's axis sizes) wants at least N task lanes a motif, in whole
+    multiples so each device receives complete lanes.  The identity
+    without a mesh or when every node already meets the quantum; clamped
+    to the ``num_tasks`` tunable bounds."""
+    q = mesh_task_quantum(mesh)
+    if q <= 1:
+        return pb
+    lo, hi = TUNABLE_BOUNDS["num_tasks"]
+    out = pb
+    for node in pb.nodes:
+        nt = int(node.p.num_tasks)
+        seeded = max(-(-nt // q) * q, q)       # round up to a q multiple
+        seeded = int(min(max(seeded, lo), hi))
+        if seeded != nt:
+            out = out.with_node(node.id, num_tasks=seeded)
+    return out

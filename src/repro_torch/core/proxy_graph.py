@@ -11,6 +11,11 @@ Intermediate-data flow: an upstream output leaf that matches a downstream
 input leaf in name+shape+dtype is forwarded directly; every remaining
 input is *data-chained* — perturbed by a checksum of the upstream outputs
 — so each node depends on its upstream nodes' results.
+
+Under an active mesh (:func:`repro_torch.distributed.sharding.use_mesh`)
+each node's generated inputs are placed on it (:func:`_shard_batch`), so
+the motifs run as DTensors and the profile carries the collectives their
+sharded forms need.
 """
 from __future__ import annotations
 
@@ -29,11 +34,63 @@ from repro_torch.core.motifs.base import (
     MOTIFS,
     PVector,
     _tree_checksum,
+    _tree_map,
     _tree_perturb,
     get_motif,
 )
+from repro_torch.core.cluster import batch_quantum, model_quantum
 from repro_torch.data.generators import derive_seed
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import active_rules, current_mesh, shard
+from repro_torch.distributed.spmd import settle
+
+
+def _shard_batch(tree):
+    """Place motif input leaves on the active mesh by logical axes (the
+    identity without one).
+
+    A proxy inherits the cluster scenario this way: its input data splits
+    across the mesh's data axis like the real workload's batch inputs, so
+    the sharded motifs emit the same collective classes (all-reduce for
+    cross-shard reductions, all-gather for whole-axis sorts, ...).  The
+    ``batch`` dim is the FIRST one divisible by the batch quantum; on a
+    2-D ``data x model`` mesh a second dim divisible by the model quantum
+    takes ``motif_width``.  A leaf with no divisible dim stays whole on
+    every rank (``quantize_proxy`` exists to avoid that).  Each rank
+    generated the whole leaf and keeps its own slice, so placing moves no
+    data."""
+    mesh = current_mesh()
+    if mesh is None:
+        return tree
+    rules = active_rules()
+    quantum = batch_quantum(mesh, rules)
+    wq = model_quantum(mesh, rules)
+    if quantum <= 1 and wq <= 1:
+        return tree
+
+    def one(x):
+        if not isinstance(x, torch.Tensor) or x.ndim < 1:
+            return x
+        axes = [None] * x.ndim
+        bdim = None
+        if quantum > 1:
+            for d in range(x.ndim):
+                if x.shape[d] % quantum == 0 and x.shape[d] >= quantum:
+                    axes[d] = "batch"
+                    bdim = d
+                    break
+        if wq > 1:
+            for d in range(x.ndim):
+                if d == bdim:
+                    continue
+                if x.shape[d] % wq == 0 and x.shape[d] >= wq:
+                    axes[d] = "motif_width"
+                    break
+        if all(a is None for a in axes):
+            return x  # no divisible dim: whole on every rank
+        return shard(x, *axes)
+
+    return _tree_map(one, tree)
 
 
 @dataclass(frozen=True)
@@ -147,7 +204,8 @@ class ProxyBenchmark:
                             zipf_alpha=lifted[i, LIFT_ZIPF])
                     if lift_reps:
                         reps, cap = lifted[i, LIFT_REPEATS], max_reps[i]
-                inputs = motif.make_inputs(p_run, derive_seed(seed, i), dev)
+                inputs = _shard_batch(
+                    motif.make_inputs(p_run, derive_seed(seed, i), dev))
                 if node.deps:
                     _, inputs = _forward_intermediate(
                         inputs, [outputs[d] for d in node.deps])
@@ -157,7 +215,8 @@ class ProxyBenchmark:
                     inputs = _tree_perturb(inputs, eps)
                 outputs[node.id] = motif.weighted_apply_dynamic(
                     p_run, inputs, node.variant, reps, cap)
-            return outputs
+            # an SPMD program returns no pending partial sums
+            return settle(outputs) if current_mesh() is not None else outputs
 
         return run
 

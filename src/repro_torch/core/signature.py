@@ -20,6 +20,12 @@ sort, data_movement, control, collective.
   (``_VIEW_OPS``/``_SLICE_OPS``); control ops (random draws,
   allocations, host reads) cost nothing, as the reference's ``rng``.
 * op mix: output bytes per class, views excluded.
+* collectives: each functional collective (``_c10d_functional``, what
+  DTensor and the port's explicit collectives issue) is keyed by the
+  reference's HLO kind (:data:`COLLECTIVE_KINDS`: ``all_reduce`` is
+  ``all-reduce``, ``all_gather_into_tensor`` ``all-gather``, ...) with
+  its operand's bytes; ``wait_tensor`` and ``_wrap_tensor_autograd``
+  are control with no bytes, and an unmapped one raises.
 * each hand-written kernel is one custom op with its own class and
   formula: ``repro_torch::matmul`` is dot with 2·M·N·K flops,
   ``repro_torch::row_moments`` reduce, ``repro_torch::bitonic_sort_blocks``
@@ -61,6 +67,7 @@ from torch.utils._pytree import tree_leaves
 
 from repro_torch.data.generators import GeneratorSupply
 from repro_torch.device import synchronize
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.kernels.flash_attention import flops as _flash_flops
 
 # ---------------------------------------------------------------------------
@@ -136,6 +143,40 @@ _TRANSCENDENTAL = {
     "atan2", "expm1", "log1p", "exp2", "log2", "erf", "_softmax",
     "_log_softmax", "linalg_vector_norm",
 }
+#: functional collectives (``_c10d_functional`` and its autograd twin)
+#: -> the reference's HLO collective kind; bytes are the operand's
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "collective-broadcast", "broadcast_": "collective-broadcast",
+}
+#: functional-collective bookkeeping: waits and autograd wrappers move no
+#: bytes (control)
+COLLECTIVE_CONTROL = {"wait_tensor", "_wrap_tensor_autograd"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+
+
+def collective_kind(func) -> Optional[str]:
+    """The reference's kind of a functional collective op, ``None`` for
+    its bookkeeping ops (:data:`COLLECTIVE_CONTROL`).  An op of those
+    namespaces in neither table raises: a new collective must be mapped,
+    not counted as "other"."""
+    name = func.overloadpacket.__name__
+    if name in COLLECTIVE_CONTROL:
+        return None
+    if name not in COLLECTIVE_KINDS:
+        raise ValueError(f"unmapped collective {func.namespace}::{name}: "
+                         f"add it to signature.COLLECTIVE_KINDS")
+    return COLLECTIVE_KINDS[name]
+
+
 #: the port's hand-written kernels, as the custom ops a profile sees
 KERNEL_OPS = {"matmul": "dot", "row_moments": "reduce",
               "bitonic_sort_blocks": "sort", "rmsnorm": "reduce",
@@ -147,8 +188,8 @@ def classify_op(func) -> str:
     name = func.overloadpacket.__name__
     if func.namespace == "repro_torch":
         return KERNEL_OPS.get(name, "other")
-    if func.namespace == "_c10d_functional":
-        return "collective"
+    if func.namespace in _COLLECTIVE_NAMESPACES:
+        return "control" if collective_kind(func) is None else "collective"
     if name in ("max", "min") and func._overloadname == "other":
         return "elementwise"  # the binary form is maximum/minimum
     for cls, names in (("dot", _DOT), ("conv", _CONV),
@@ -230,18 +271,26 @@ class ProfileStats:
             self.conv_flops += f
             self.flops += f
         elif cls == "collective":
-            self.collective_bytes[name] = (
-                self.collective_bytes.get(name, 0.0) + (in_bytes or out_bytes))
+            kind = collective_kind(func)
+            self.collective_bytes[kind] = (
+                self.collective_bytes.get(kind, 0.0) + (in_bytes or out_bytes))
         if name in _TRANSCENDENTAL:
             self.transcendentals += out_elems
 
 
 class _Profiler(TorchDispatchMode):
+    """Records every op one run dispatches.  An op on DTensors is handed
+    back to the DTensor subclass first (``NotImplemented``), which runs
+    it as local ops and collectives that come back here: the profile is
+    one rank's, as the reference's is one device's SPMD program."""
+
     def __init__(self):
         super().__init__()
         self.stats = ProfileStats()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t.__name__ == "DTensor" for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         self.stats.record(func, args, kwargs, out)
@@ -531,14 +580,31 @@ def graph_wall_time(fn: Callable[[], Any], warmup: int = 2, iters: int = 5,
     return float(np.median(times))
 
 
+#: why a sharded program's wall is eager
+SHARDED = ("sharded over a mesh: a gloo collective goes through the host "
+           "and cannot be captured in a CUDA graph; the slowest rank's "
+           "eager wall")
+
+
 def timed_wall(fn: Callable[[], Any], warmup: int = 2, iters: int = 5,
                device: Optional[torch.device] = None
                ) -> Tuple[float, Dict[str, str]]:
     """``(seconds, timing)``: the wall time of ``fn()`` and how it was
     taken.  On CUDA, :func:`graph_wall_time` (``{"mode": "graph"}``), or,
     where the capture fails, :func:`measure_wall_time` with the reason
-    (``{"mode": "eager", "reason": ...}``); on the CPU always eager."""
+    (``{"mode": "eager", "reason": ...}``); on the CPU always eager.
+
+    Under an active mesh (a sharded program) the wall is eager, since
+    its gloo collectives run through the host and cannot be captured,
+    and it is the slowest rank's: every rank of the mesh gets the same
+    value, so their tuners take the same steps."""
     device = device or torch.device("cpu")
+    mesh = current_mesh()
+    if mesh is not None:
+        from repro_torch.core.cluster import mesh_max
+
+        wall = measure_wall_time(fn, warmup, iters, device)
+        return mesh_max(wall, mesh), {"mode": "eager", "reason": SHARDED}
     if device.type != "cuda":
         return (measure_wall_time(fn, warmup, iters, device),
                 {"mode": "eager", "reason": "no CUDA graph on the cpu"})

@@ -56,11 +56,13 @@ from repro_torch.core.signature import Signature
 #: answer.
 STORE_VERSION = 2
 
-#: the store-key components, in order.  The device key takes the
-#: reference's mesh key's place.  The substrate is not a separate
+#: the store-key components, in order.  The mesh key
+#: (``cluster.mesh_structural_key``) is there only when the engine is
+#: bound to a mesh, so a meshless entry's key is what it was before
+#: meshes; the device key follows it.  The substrate is not a separate
 #: component: it lives inside each node's structural P key, so it is
 #: already part of the shape signature.
-KEY_COMPONENTS = ("shape_signature", "device_key", "substrate")
+KEY_COMPONENTS = ("shape_signature", "mesh_key", "device_key", "substrate")
 
 _TMP_COUNTER = itertools.count()
 

@@ -1,3 +1,12 @@
-"""Logical-axis sharding for the port (``repro_torch.distributed.
-sharding``): so far only the rule table the mesh-shape arithmetic of
-``repro_torch.core.cluster`` reads."""
+"""Sharding on ``torch.distributed`` for the port: the logical-axis rule
+table and the active mesh (``sharding``), the collectives DTensor cannot
+place by itself (``spmd``), and a host's group of ranks (``launch``)."""
+from repro_torch.distributed.sharding import (  # noqa: F401
+    DEFAULT_RULES,
+    ShardingRules,
+    active_rules,
+    current_mesh,
+    named_sharding,
+    shard,
+    use_mesh,
+)

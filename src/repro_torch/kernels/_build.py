@@ -24,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -158,7 +158,8 @@ def call(name: str, *args) -> None:
         raise RuntimeError(f"{name}: launch failed ({status}): {what}")
 
 
-def define_op(schema: str, impl: Callable) -> None:
+def define_op(schema: str, impl: Callable,
+              meta: Optional[Callable] = None) -> None:
     """Define ``repro_torch::<schema>`` with ``impl`` as its kernel on the
     CPU and CUDA dispatch keys (``torch.ops.repro_torch.<name>``).
 
@@ -166,11 +167,14 @@ def define_op(schema: str, impl: Callable) -> None:
     ``torch.library.custom_op`` several times that (timed by
     ``repro_torch.bench.thresholds``).  ``impl`` checks its inputs, takes
     the plain version for CPU tensors and launches its kernel for CUDA
-    ones."""
+    ones.  ``meta`` gives the op's outputs on meta tensors (their shapes
+    and dtypes, no data): DTensor places an op by running it there."""
     name = schema.split("(", 1)[0]
     _LIB.define(schema)
     for key in ("CPU", "CUDA"):
         _LIB.impl(name, impl, key)
+    if meta is not None:
+        _LIB.impl(name, meta, "Meta")
 
 
 def define_vmap(name: str, rule: Callable) -> None:

@@ -131,7 +131,8 @@ def _bitonic_sort_blocks_op(x: torch.Tensor, block: int) -> torch.Tensor:
 
 _build.define_op(
     "bitonic_sort_blocks(Tensor x, SymInt block) -> Tensor",
-    _bitonic_sort_blocks_op)
+    _bitonic_sort_blocks_op,
+    meta=lambda x, block: x.new_empty((x.shape[0] + (-x.shape[0]) % block,)))
 
 
 def _bitonic_sort_blocks_vmap(info, in_dims, x, block):

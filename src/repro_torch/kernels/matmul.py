@@ -105,7 +105,8 @@ def _matmul_op(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return matmul_lanes(x, y)
 
 
-_build.define_op("matmul(Tensor x, Tensor y) -> Tensor", _matmul_op)
+_build.define_op("matmul(Tensor x, Tensor y) -> Tensor", _matmul_op,
+                 meta=lambda x, y: x.new_empty((x.shape[0], y.shape[1])))
 
 
 def _matmul_vmap(info, in_dims, x, y):

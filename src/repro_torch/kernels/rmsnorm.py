@@ -112,7 +112,13 @@ def _row_moments_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return out
 
 
-_build.define_op("row_moments(Tensor x) -> (Tensor, Tensor)", _row_moments_op)
+def _row_moments_meta(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (x.new_empty(x.shape[:-1], dtype=torch.float32),
+            x.new_empty(x.shape[:-1], dtype=torch.float32))
+
+
+_build.define_op("row_moments(Tensor x) -> (Tensor, Tensor)", _row_moments_op,
+                 meta=_row_moments_meta)
 
 
 def _row_moments_vmap(info, in_dims, x):

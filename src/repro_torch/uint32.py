@@ -56,7 +56,15 @@ def bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def take(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``x[index]`` along the first dim, for any dtype."""
+    """``x[index]`` along the first dim, for any dtype.  A DTensor ``x``
+    split on its rows, taken by a whole index, assembles the rows by a
+    masked all-reduce (:func:`repro_torch.distributed.spmd.gather_rows`)."""
+    if type(x).__name__ == "DTensor":
+        from repro_torch.distributed.spmd import gather_rows
+
+        out = gather_rows(bits(x), index)
+        if out is not None:
+            return reinterpret(out, x.dtype)
     return reinterpret(bits(x)[index], x.dtype)
 
 

@@ -27,6 +27,8 @@ from repro_torch.core.decompose import MotifHint
 from repro_torch.core.motifs.transform import conv2d
 from repro_torch.data.generators import DataSpec, gen_images
 from repro_torch.device import full_f32
+from repro_torch.distributed.spmd import (batch_sum, is_dtensor,
+                                         replicate_dims, replicated)
 from repro_torch.workloads.base import Workload, register_workload
 
 NUM_CLASSES = 10
@@ -64,8 +66,17 @@ def init_params(gen: torch.Generator) -> Dict[str, torch.Tensor]:
 
 def batchnorm(x: torch.Tensor) -> torch.Tensor:
     """NCHW ``x`` normalised per channel over (N, H, W), population
-    variance."""
-    var, mean = torch.var_mean(x, dim=(0, 2, 3), keepdim=True, correction=0)
+    variance.  A batch-sharded (DTensor) ``x`` takes its statistics as
+    two means (each an all-reduce of partial averages), where the fused
+    ``var_mean`` would gather the whole batch."""
+    if is_dtensor(x):
+        x = replicate_dims(x, (1, 2, 3))
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        mean = batch_sum(x, (0, 2, 3)) / n
+        var = batch_sum(torch.square(x - mean), (0, 2, 3)) / n
+    else:
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), keepdim=True,
+                                   correction=0)
     return (x - mean) * torch.rsqrt(var + 1e-5)
 
 
@@ -109,11 +120,13 @@ def make_inputs(gen: torch.Generator, scale: float = 1.0):
 
 def sgd_step(loss_fn, params, *args, lr: float = 0.01):
     """``(params - lr * grad, loss)`` of ``loss_fn(params, *args)``, in full
-    f32."""
+    f32.  Under a mesh each gradient is made whole (the data-parallel
+    gradient all-reduce) before it updates its replicated parameter."""
     with full_f32():
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         loss = loss_fn(leaves, *args)
         grads = torch.autograd.grad(loss, tuple(leaves.values()))
+    grads = tuple(replicated(g) for g in grads)
     with torch.no_grad():
         new = {k: p - lr * g for (k, p), g in zip(params.items(), grads)}
     return new, loss.detach()
@@ -135,4 +148,5 @@ ALEXNET = register_workload(Workload(
     make_inputs=make_inputs,
     step=step,
     hints=HINTS,
+    input_axes=(None, "batch", "batch"),
 ))

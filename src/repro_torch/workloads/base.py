@@ -10,7 +10,7 @@ distribution.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -21,12 +21,21 @@ from repro_torch.device import DeviceLike, resolve_device
 
 @dataclass(frozen=True)
 class Workload:
-    """One of the paper's real workloads."""
+    """One of the paper's real workloads plus its cluster annotations.
+
+    ``input_axes`` names the logical axis of each positional ``step``
+    argument's *leading* dim — ``"batch"`` for data that splits across a
+    cluster scenario's data axis (records, samples, edges), ``None`` for
+    replicated state (parameters, centroids).  The sharding rule table
+    (:mod:`repro_torch.distributed.sharding`) maps logical names onto the
+    scenario's mesh; without a mesh they are inert.  Shorter tuples are
+    padded with ``None``."""
 
     name: str
     make_inputs: Callable[[torch.Generator, float], Tuple[Any, ...]]
     step: Callable[..., Any]
     hints: Tuple[MotifHint, ...]
+    input_axes: Tuple[Optional[str], ...] = ()
 
     def inputs(self, seed: int = 0, scale: float = 1.0,
                device: DeviceLike = None) -> Tuple[Any, ...]:

@@ -157,4 +157,5 @@ INCEPTION_V3 = register_workload(Workload(
     make_inputs=make_inputs,
     step=step,
     hints=HINTS,
+    input_axes=(None, "batch", "batch", None),
 ))

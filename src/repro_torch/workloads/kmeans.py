@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.decompose import MotifHint
 from repro_torch.data.generators import DataSpec, gen_vectors
 from repro_torch.device import full_f32
+from repro_torch.distributed.spmd import replicated
 from repro_torch.workloads.base import Workload, register_workload
 
 DIM = 64
@@ -43,7 +44,8 @@ def step(x: torch.Tensor, centroids: torch.Tensor):
     k = centroids.shape[0]
     onehot = (assign[:, None] == torch.arange(k, device=x.device)).to(x.dtype)
     sums = onehot.T @ x
-    counts = torch.sum(onehot, dim=0)
+    # sharded points: the counts are made whole once, for every use
+    counts = replicated(torch.sum(onehot, dim=0))
     new_centroids = sums / torch.clamp_min(counts[:, None], 1.0)
 
     # the Hadoop reduce side emits clusters sorted by size (sort motif);
@@ -64,4 +66,5 @@ KMEANS = register_workload(Workload(
     make_inputs=make_inputs,
     step=step,
     hints=HINTS,
+    input_axes=("batch", None),
 ))

@@ -59,4 +59,5 @@ PAGERANK = register_workload(Workload(
     make_inputs=make_inputs,
     step=step,
     hints=HINTS,
+    input_axes=("batch", "batch", None),
 ))

@@ -24,6 +24,8 @@ import torch
 
 from repro_torch.core.decompose import MotifHint
 from repro_torch.data.generators import DataSpec, gen_text_records
+from repro_torch.distributed.spmd import bincount as spmd_bincount
+from repro_torch.distributed.spmd import is_dtensor, replicated
 from repro_torch.uint32 import take, widen
 from repro_torch.workloads.base import Workload, register_workload
 
@@ -38,7 +40,10 @@ def make_inputs(gen: torch.Generator, scale: float = 1.0):
 
 def step(keys: torch.Tensor, payload: torch.Tensor):
     n = keys.shape[0]
-    wide = widen(keys)
+    # sharded records: the keys are gathered once, for the sample, the
+    # partition search and the global order, as the reference's
+    # partitioner gathers them; the records then move by the order
+    wide = widen(replicated(keys))
     # 1. sampling: TotalOrderPartitioner split points
     sample = torch.sort(wide[:: max(n // 4096, 1)]).values
     splits = sample[:: max(sample.shape[0] // NUM_PARTS, 1)][:NUM_PARTS - 1]
@@ -46,7 +51,10 @@ def step(keys: torch.Tensor, payload: torch.Tensor):
 
     # 2. shuffle: partition id per record + per-partition counts
     part = torch.searchsorted(splits, wide)
-    counts = torch.bincount(part, minlength=NUM_PARTS).to(torch.int32)
+    if is_dtensor(part):  # each rank's counts, all-reduced
+        counts = spmd_bincount(part, NUM_PARTS).to(torch.int32)
+    else:
+        counts = torch.bincount(part, minlength=NUM_PARTS).to(torch.int32)
     offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
 
     # 3. sort + merge: global order carrying the 100-byte records
@@ -65,4 +73,5 @@ TERASORT = register_workload(Workload(
     make_inputs=make_inputs,
     step=step,
     hints=HINTS,
+    input_axes=("batch", "batch"),
 ))

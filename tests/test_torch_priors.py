@@ -35,6 +35,7 @@ from repro_torch.core.generator import select_metrics
 from repro_torch.core.motifs import PVector
 from repro_torch.core.proxy_graph import MotifNode, ProxyBenchmark
 from repro_torch.core.tuner import DecisionTreeTuner
+from repro_torch.distributed.sharding import MeshShape
 from repro_torch.workloads import WORKLOADS
 
 
@@ -114,10 +115,17 @@ def test_rows_the_prior_cannot_fill():
 def test_seed_num_tasks_without_a_mesh_is_the_identity():
     pb = _chain()
     assert tpriors.seed_num_tasks(pb, None) is pb
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpriors.seed_num_tasks(pb, object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpriors.elasticity_priors(pb, ["mix_sort"], mesh=object())
+    # with a mesh: the reference's seeding, and the collective rows
+    mesh = MeshShape(("data", "model"), (2, 2))
+    seeded = tpriors.seed_num_tasks(pb, mesh)
+    want = jpriors.seed_num_tasks(_chain(mod="ref"), mesh)
+    assert [n.p.num_tasks for n in seeded.nodes] == \
+        [n.p.num_tasks for n in want.nodes]
+    metrics = ["mix_sort", "coll_frac", "coll_all_reduce_frac"]
+    table = tpriors.elasticity_priors(pb, metrics, mesh=mesh)
+    ref = jpriors.elasticity_priors(_chain(mod="ref"), metrics, mesh=mesh)
+    assert dict(table.slopes) == dict(ref.slopes)
+    assert table.covered == ref.covered
 
 
 @pytest.mark.parametrize("confidence", [0.0, -1.0])

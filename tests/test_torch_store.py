@@ -57,8 +57,11 @@ def _entry_path(session: EvalSession, pb: ProxyBenchmark) -> str:
 def test_store_contract_constants():
     # the port's own bump: its CUDA walls are captured-graph replays
     assert STORE_VERSION == jstore.STORE_VERSION + 1
-    assert tstore.KEY_COMPONENTS == ("shape_signature", "device_key",
-                                     "substrate")
+    # the mesh key, present only under a mesh, is the reference's; the
+    # device key follows it
+    assert tstore.KEY_COMPONENTS == ("shape_signature", "mesh_key",
+                                     "device_key", "substrate")
+    assert tstore.KEY_COMPONENTS[:2] == jstore.KEY_COMPONENTS[:2]
     assert device_key(torch.device("cpu")) == (
         "__device__", "cpu", "cpu", (), torch.__version__,
         str(torch.version.cuda))
