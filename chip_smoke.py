@@ -127,6 +127,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``single`` differs from the serial engine by a bit, the hopper proxy
    differs from the stock form on dp2, or a rank never launched a
    kernel its workloads' proxies lower onto;
+6h. stress: the stress tier, after the scenarios.  (a)
+   ``repro_torch.bench.stress_matrix --check --substrate hopper`` at
+   full size (the 1<<22-key scale case) in a child process of
+   ``STRESS_RANKS`` (4) ranks sharing the card: every gate must pass and
+   every case on every rank end as the reference's does (``typed_failure``
+   for ``STRESS_TYPED``, ``completed`` for the other seven), the skew
+   sweep with one profile, the fault case with one recovery, the device
+   drop typed at one device and replayed on a (1, 2) mesh, and every
+   rank must launch the bitonic sort; (b) and (c) in a group of four
+   ranks of its own, each running ``repro_torch.bench.stress_group``
+   (the rank body the CPU tests run in two ranks): the GPipe
+   ``pipeline_apply`` over the four ranks at the reference test's shape
+   (4 stages, 8 microbatches of (2, 16), ``tanh(h @ w)``, and its tree
+   form) against ``gpipe_reference`` on one rank (max abs err within
+   ``PIPE_TOL``), a state (f32 (4096, 256), int64 counter, bf16 (1024,))
+   sharded on dp4, saved with ``blocking=False`` and restored onto dp2,
+   as its prototypes are placed, and onto one rank, each exactly, and a
+   ``FaultTolerantRunner`` on a dp4-sharded state through one injected
+   fault.  Logs each case's payload and each rank's launches and
+   device-memory peaks;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -146,7 +166,8 @@ workload of phase 6b and its times at those workloads' shapes, its
 launches over each workload of phase 6c, its launches over phase 6d
 as ``serve_launches``, its launches over each case of phase 6e as
 ``case_studies_launches``, for the first three its launches on each
-rank of each run of phase 6g as ``scenario_launches``, and, for the first three, its launches over
+rank of each run of phase 6g as ``scenario_launches``, its launches on
+each rank of phase 6h (a) as ``stress_launches``, and, for the first three, its launches over
 one call a chunk of phase 6f (b) as ``population_launches`` and its
 phase 6f (a) rows as ``lane_forms``), the
 card's name and power limit, and
@@ -1752,6 +1773,154 @@ def phase_scenarios(torch, dev, work: Path) -> dict:
     return launches
 
 
+#: phase 6h: ``repro_torch.bench.stress_matrix`` at full size in
+#: ``STRESS_RANKS`` ranks sharing the card, each case's status over every
+#: rank the reference's (``typed_failure`` for these three, ``completed``
+#: for the other seven)
+STRESS_RANKS = 4
+STRESS_TYPED = ("indivisible_mesh", "oversubscribed_mesh",
+                "fault_exhausts_retries")
+#: seconds the stress_matrix run's ranks, and the phase's own group, may take
+STRESS_TIMEOUT = 600
+#: (b): the reference test's pipeline (microbatches, rows, width) over
+#: the ``STRESS_RANKS`` ranks as stages, ``tanh(h @ w)`` (and the tree
+#: form ``tanh(h @ w + b)``), against the sequential oracle on one rank:
+#: the largest difference within the reference test's atol (the two run
+#: the same products, so on the card they agree to the bit)
+PIPE_SHAPE = (8, 2, 16)
+PIPE_TOL = 1e-5
+#: (c): the state saved sharded on dp4 and restored onto dp2 (dp4 less two
+#: ranks) and onto one rank, exactly: its shapes and placements
+CKPT_STATE = {"w": ((4096, 256), "float32", "shard"),
+              "count": ((), "int64", "replicate"),
+              "v": ((1024,), "bfloat16", "shard")}
+
+
+def stress_group_args():
+    """``repro_torch.bench.stress_group.pipeline_and_restore``'s inputs
+    for (b) and (c), from a seed: the pipeline's weights, biases and
+    microbatches, the state and its placements on dp4."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    num_mb, rows, width = PIPE_SHAPE
+    g = np.random.default_rng(24)
+    w = (g.standard_normal((STRESS_RANKS, width, width)) * 0.3).astype(
+        np.float32)
+    b = g.standard_normal((STRESS_RANKS, 1, width)).astype(np.float32)
+    x = g.standard_normal((num_mb, rows, width)).astype(np.float32)
+    state, split = {}, {}
+    for k, (shape, dtype, how) in CKPT_STATE.items():
+        v = (torch.from_numpy(np.asarray(g.integers(-2**62, 2**62, shape)))
+             if dtype == "int64"
+             else torch.from_numpy(g.standard_normal(shape).astype(
+                 np.float32)).to(getattr(torch, dtype)))
+        state[k] = v
+        split[k] = (Shard(0),) if how == "shard" else (Replicate(),)
+    return w, b, x, state, split
+
+
+def phase_stress(torch, dev, work: Path) -> dict:
+    """The stress tier: (a) ``stress_matrix --check --device cuda
+    --substrate hopper`` at full size, a child process of
+    ``STRESS_RANKS`` ranks sharing the card (launch counters fresh in
+    every rank); (b) and (c) in a group running ``stress_group``.  Logs
+    each case's status, each rank's launches and device-memory peak.
+    Fails if a gate fails, a case's status on any rank is not the
+    reference's, the skew sweep took more than one profile, the fault
+    case did not recover once, the device drop did not fail typed at one
+    and replay on (1, 2), a rank never launched the bitonic sort, the
+    pipeline differs from the oracle, a restore is not exact, or the
+    runner did not recover once.
+    Returns ``{kernel: [launches per rank]}`` over (a)."""
+    import os
+
+    from repro_torch.bench import stress_group
+    from repro_torch.bench.stress_matrix import STRESS_CASES
+    from repro_torch.distributed.launch import spawn
+
+    out = work / "stress.json"
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               REPRO_EMU_DEVICES=str(STRESS_RANKS))
+    cmd = [sys.executable, "-m", "repro_torch.bench.stress_matrix",
+           "--check", "--device", "cuda", "--substrate", "hopper",
+           "--out", str(out), "--timeout", str(STRESS_TIMEOUT)]
+    log(f"stress run: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    rc = subprocess.run(cmd, env=env, timeout=STRESS_TIMEOUT + 60
+                        ).returncode
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise fail(f"stress_matrix returned {rc} after {seconds:.1f} s")
+    run = json.loads(out.read_text())["runs"][-1]
+    log(f"stress run: {seconds:.1f} s, {run['devices']} ranks, gates "
+        f"{json.dumps(run['gates'])}")
+    if run["devices"] != STRESS_RANKS or not all(run["gates"].values()):
+        raise fail(f"stress gates: {run['gates']} {run['failures']}")
+    for r in run["ranks"]:
+        if [c["case"] for c in r["results"]] != list(STRESS_CASES):
+            raise fail(f"rank {r['rank']} ran {len(r['results'])} cases")
+        for c in r["results"]:
+            want = ("typed_failure" if c["case"] in STRESS_TYPED
+                    else "completed")
+            if c["status"] != want:
+                raise fail(f"rank {r['rank']}: {c['case']} {c['status']} "
+                           f"({c.get('error', '')}), want {want}")
+    cases = {c["case"]: c for c in run["cases"]}
+    for name, c in cases.items():
+        log(f"  {name}: {c['status']} "
+            + json.dumps({k: v for k, v in c.items() if k not in (
+                "case", "kind", "must_fail", "status", "balanced_spans")}))
+    drop = cases["device_drop_requalify"]
+    if cases["zipf_skew_sweep"]["compiles"] != 1:
+        raise fail("the skew sweep took more than one profile")
+    if cases["fault_injection_restore"]["recoveries"] != 1:
+        raise fail("the fault case did not recover exactly once")
+    if ("drop1_typed_error" not in drop or drop["replay_under"]["devices"]
+            != 2 or drop["replay_under"]["mesh_shape"] != [1, 2]):
+        raise fail(f"the device drop: {drop}")
+    launches = {}
+    for r in run["ranks"]:
+        log(f"  rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+            f"device memory peak allocated "
+            f"{r['max_allocated_bytes'] / 2**30:.2f} GiB, reserved "
+            f"{r['max_reserved_bytes'] / 2**30:.2f} GiB")
+        if r["launches"]["bitonic_sort"] == 0:
+            raise fail(f"stress rank {r['rank']} never launched the sort")
+        for k, n in r["launches"].items():
+            launches.setdefault(k, []).append(n)
+
+    t0 = time.perf_counter()
+    ranks = spawn(stress_group.pipeline_and_restore, STRESS_RANKS, "cuda",
+                  *stress_group_args(), "dp4", str(work / "stress_ckpt"),
+                  device_type="cuda", timeout_s=STRESS_TIMEOUT)
+    log(f"stress group (pipeline, elastic restore, runner): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        run = r["runner"]
+        log(f"  rank {r['rank']}: pipeline max abs err {r['pipe_err']:.3g} "
+            f"(tree {r['pipe_tree_err']:.3g}), restores {r['restore']}, "
+            f"runner recoveries {run['recoveries']}, {r['seconds']:.1f} s, "
+            f"device memory peak allocated "
+            f"{r['max_allocated_bytes'] / 2**30:.3f} GiB")
+        if max(r["pipe_err"], r["pipe_tree_err"]) > PIPE_TOL:
+            raise fail(f"rank {r['rank']}: the pipeline differs from "
+                       f"gpipe_reference by {r['pipe_err']} "
+                       f"(tree {r['pipe_tree_err']})")
+        checks = {k: v for k, v in r["restore"].items() if k != "step"}
+        if (r["restore"]["step"] != stress_group.SAVE_STEP
+                or not all(checks.values())):
+            raise fail(f"rank {r['rank']}: a restore is not exact: "
+                       f"{r['restore']}")
+        if (run["final_step"] != 5 or run["recoveries"] != 1
+                or not run["sharded"] or (run["w"] != 5.0).any()):
+            raise fail(f"rank {r['rank']}: the runner on dp4: {run}")
+    if sum("dp2_whole" in r["restore"] for r in ranks) != 2:
+        raise fail("dp2's two ranks did not both restore")
+    return launches
+
+
 #: the population phase's lane counts: two, and the evaluator's
 #: ``DEFAULT_EVAL_BATCH``, the most lanes one population call takes
 LANES = (2, 32)
@@ -2031,7 +2200,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="env,kernels,main,workloads,paper_repro,"
-                            "case_studies,population,serve,scenarios,bench",
+                            "case_studies,population,serve,scenarios,"
+                            "stress,bench",
                     help="comma list of env, kernels, main (main includes "
                          "the checks and main-path shapes), workloads (the "
                          "other four workloads), paper_repro (the sweep of "
@@ -2040,6 +2210,8 @@ def main(argv=None) -> int:
                          "tuner_bench; needs main), serve (the proxy "
                          "server; needs paper_repro), scenarios (the "
                          "cluster scenarios on ranks sharing the card), "
+                         "stress (the stress tier, the pipeline and the "
+                         "elastic restore on ranks sharing the card), "
                          "bench (needs kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
@@ -2109,6 +2281,9 @@ def main(argv=None) -> int:
         if "scenarios" in phases:
             scenario_launches = timed("scenarios", phase_scenarios, torch,
                                       dev, work)
+        stress_launches = {}
+        if "stress" in phases:
+            stress_launches = timed("stress", phase_stress, torch, dev, work)
     if "bench" in phases:
         entries += timed("bench", phase_bench, torch, dev, kernel_rows)
     for e in entries:  # the other workloads' paths, beside the main one
@@ -2118,6 +2293,7 @@ def main(argv=None) -> int:
                                      for w, c in paper_launches.items()}
         e["serve_launches"] = serve_launches.get(e["name"])
         e["scenario_launches"] = scenario_launches.get(e["name"])
+        e["stress_launches"] = stress_launches.get(e["name"])
         e["case_studies_launches"] = {c: n[e["name"]]
                                       for c, n in case_launches.items()}
         e["population_launches"] = population["population_launches"].get(

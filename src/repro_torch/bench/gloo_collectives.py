@@ -5,7 +5,9 @@ them (NCCL refuses two ranks on one device).  For each collective the
 scenarios' programs may issue, this starts its own group of two ranks on
 the card and runs it once on a CUDA tensor: the five c10d collectives,
 then the functional ones DTensor issues (``_c10d_functional``, each
-waited on), alone and after the five plain ones in one group.  A line a
+waited on), alone and after the five plain ones in one group, then the
+point-to-point exchanges a pipeline's ring shift may use (a blocking
+``send``/``recv`` pair, and ``batch_isend_irecv``).  A line a
 case: ``ok`` with the result rank 0 holds and whether it is right, the
 error, or how the group ended (a crash).
 
@@ -23,6 +25,7 @@ import torch.distributed as dist
 PLAIN = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
          "all_to_all_single", "broadcast")
 FUNCTIONAL = ("funcol_all_reduce", "funcol_all_gather")
+POINT_TO_POINT = ("send_recv", "batch_isend_irecv")
 
 
 def _one(name: str):
@@ -61,6 +64,23 @@ def _one(name: str):
         out = funcol.all_gather_tensor(torch.full((2,), float(r), device=dev),
                                        0, dist.group.WORLD)
         return funcol.wait_tensor(out).tolist(), [0.0, 0.0, 1.0, 1.0]
+    # each rank sends its own values to the other and keeps what it gets
+    mine, other = torch.full((4,), float(r), device=dev), 1 - r
+    got = torch.empty(4, device=dev)
+    if name == "send_recv":  # rank 0 sends first, rank 1 receives first
+        if r == 0:
+            dist.send(mine, other)
+            dist.recv(got, other)
+        else:
+            dist.recv(got, other)
+            dist.send(mine, other)
+        return got.tolist(), [float(other)] * 4
+    if name == "batch_isend_irecv":
+        for work in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, mine, other),
+                 dist.P2POp(dist.irecv, got, other)]):
+            work.wait()
+        return got.tolist(), [float(other)] * 4
     raise ValueError(name)
 
 
@@ -81,7 +101,8 @@ def main(argv=None) -> int:
         print("gloo_collectives: no CUDA device", file=sys.stderr)
         return 2
     print(f"torch {torch.__version__}, backend cpu:gloo,cuda:gloo, 2 ranks")
-    cases = [(n,) for n in PLAIN + FUNCTIONAL] + [PLAIN + FUNCTIONAL]
+    cases = ([(n,) for n in PLAIN + FUNCTIONAL] + [PLAIN + FUNCTIONAL]
+             + [(n,) for n in POINT_TO_POINT])
     failed = 0
     for names in cases:
         label = names[0] if len(names) == 1 else "the five, then functional"

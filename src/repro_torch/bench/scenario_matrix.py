@@ -120,16 +120,14 @@ from repro_torch.core.motifs.base import SUBSTRATES
 from repro_torch.core.proxy_graph import ProxyBenchmark
 from repro_torch.core.store import ProxyStore
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import use_mesh
+from repro_torch.distributed.launch import gather_objects as _gather
+from repro_torch.distributed.launch import rank as _rank
+from repro_torch.distributed.sharding import use_mesh, whole
 from repro_torch.workloads import WORKLOADS
 
 QUICK_WORKLOADS = ("terasort", "kmeans")
 # dp2_mp2 puts one genuine 2-D (data x model) mesh in the default grid
 DEFAULT_SCENARIOS = ("single", "dp2", "dp4", "dp2_mp2")
-
-
-def _rank() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def say(*a, **kw) -> None:
@@ -332,7 +330,7 @@ def substrate_parity(pb, mesh, device, seed=0) -> Dict[str, Any]:
         fn = q.build_eval_fn(device)
         with use_mesh(mesh):
             res = fn(seed, q.lifted_values(device))
-            outs[sub] = {f"{k}.{leaf}": _whole(v)
+            outs[sub] = {f"{k}.{leaf}": whole(v).cpu()
                          for k, tree in res.items()
                          for leaf, v in _leaves(tree)}
     worst, exact = 0.0, True
@@ -355,12 +353,6 @@ def _leaves(tree, prefix=""):
             yield from _leaves(v, f"{prefix}{k}.")
     elif isinstance(tree, torch.Tensor):
         yield prefix.rstrip("."), tree
-
-
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's whole value (gathered under the active mesh), on the
-    CPU."""
-    return (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu()
 
 
 def population_bench(pb, n, mesh_scn, device, iters=3, seed=0):
@@ -403,14 +395,6 @@ def _rank_record(device) -> Dict[str, Any]:
         rec["max_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
         rec["max_reserved_bytes"] = torch.cuda.max_memory_reserved(device)
     return rec
-
-
-def _gather(obj) -> List[Any]:
-    if not dist.is_initialized():
-        return [obj]
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
-    return out
 
 
 def parse_args(argv=None):

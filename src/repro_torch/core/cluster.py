@@ -60,7 +60,8 @@ from repro_torch.distributed.sharding import (
 from repro_torch.distributed.spmd import settle
 
 #: how many ranks a program starts when it sets up its own process group
-#: (``bench/scenario_matrix.py``), the reference's variable
+#: (``bench/scenario_matrix.py``, ``bench/stress_matrix.py``), the
+#: reference's variable
 EMU_DEVICES_ENV = "REPRO_EMU_DEVICES"
 
 
@@ -122,8 +123,8 @@ class ClusterScenario:
             raise ClusterError(
                 f"scenario {self.name!r} needs {self.device_count} ranks "
                 f"but the process group has {world}; start "
-                f"{self.device_count} or more ranks (scenario_matrix "
-                f"starts {EMU_DEVICES_ENV} of them)")
+                f"{self.device_count} or more ranks (scenario_matrix and "
+                f"stress_matrix start {EMU_DEVICES_ENV} of them)")
         if device_type is None:
             device_type = "cuda" if torch.cuda.is_available() else "cpu"
         key = (device_type, self.mesh_shape, self.axis_names)

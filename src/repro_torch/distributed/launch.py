@@ -27,6 +27,21 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
+def rank() -> int:
+    """This process's rank in the default group (0 without a group)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def gather_objects(obj: Any) -> List[Any]:
+    """``obj`` from every rank of the default group, in rank order
+    (``[obj]`` without a group)."""
+    if not dist.is_initialized():
+        return [obj]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
 def backend_for(device_type: str) -> str:
     return "cpu:gloo,cuda:gloo" if device_type == "cuda" else "gloo"
 

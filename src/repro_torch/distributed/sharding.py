@@ -203,6 +203,18 @@ class GlooCollectives(TorchDispatchMode):
         return out
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's whole value, detached: a DTensor gathered (a collective
+    over its mesh, on the host as gloo needs: :class:`GlooCollectives`),
+    on the device it was on; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        with GlooCollectives():
+            t = t.full_tensor()
+    return t.detach()
+
+
 @contextlib.contextmanager
 def use_mesh(mesh, rules: Optional[ShardingRules] = None):
     """Activate (mesh, rules) for :func:`shard` on this thread.  With a

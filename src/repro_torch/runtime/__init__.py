@@ -1,4 +1,10 @@
-"""Runtime layers of the port: the proxy server and telemetry."""
+"""Runtime layers of the port: fault tolerance, the proxy server and
+telemetry."""
+from repro_torch.runtime.fault_tolerance import (  # noqa: F401
+    FaultTolerantRunner,
+    RunnerConfig,
+    StepMonitor,
+)
 from repro_torch.runtime.proxy_server import (  # noqa: F401
     PERCENTILES,
     REQUEST_CLASSES,
