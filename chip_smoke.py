@@ -147,6 +147,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``FaultTolerantRunner`` on a dp4-sharded state through one injected
    fault.  Logs each case's payload and each rank's launches and
    device-memory peaks;
+6i. model: the model zoo's serving path (``repro_torch.models``,
+   ``repro_torch.runtime.serve_loop``), counters zeroed just before and
+   read just after.  (a) qwen3-4b at full width and depth (36 layers,
+   about 4.02 B f32 params from a seed, bf16 activations) on the card: a
+   prefill of 4 x 1024 tokens, ``pad_caches`` to 1056, 32 greedy decode
+   steps, then a teacher-forced ``forward`` over the same 1056 tokens;
+   fails on a non-finite logit or a step outside ``MODEL_BF16_*`` of the
+   forward at its position, and logs prefill tokens/s, decode ms a token
+   (median of the steps after the first) beside the bounds, and the
+   device-memory peak; (b) the same width at two layers in f32 with TF32
+   off, a prefill of 128 tokens and 4 decode steps on the card against
+   the port on the host on the same weights and tokens
+   (``MODEL_F32_TOL``).  Fails if any of the six kernels launched: the
+   zoo keeps its own attention and norms, as the reference's does;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -167,7 +181,8 @@ launches over each workload of phase 6c, its launches over phase 6d
 as ``serve_launches``, its launches over each case of phase 6e as
 ``case_studies_launches``, for the first three its launches on each
 rank of each run of phase 6g as ``scenario_launches``, its launches on
-each rank of phase 6h (a) as ``stress_launches``, and, for the first three, its launches over
+each rank of phase 6h (a) as ``stress_launches``, its launches over
+phase 6i as ``model_launches``, and, for the first three, its launches over
 one call a chunk of phase 6f (b) as ``population_launches`` and its
 phase 6f (a) rows as ``lane_forms``), the
 card's name and power limit, and
@@ -1921,6 +1936,281 @@ def phase_stress(torch, dev, work: Path) -> dict:
     return launches
 
 
+#: the model phase (6i): the zoo's serving path at full width and depth
+#: (qwen3-4b: 36 layers, d_model 2560, 32 query and 8 KV heads of 128,
+#: d_ff 9728, vocab 151,936, qk-norm, tied embeddings; about 4.02 B f32
+#: params from ``MODEL_SEED``, bf16 activations): a prefill of
+#: ``MODEL_BATCH`` x ``MODEL_PROMPT`` tokens, ``pad_caches`` to
+#: ``MODEL_PROMPT + MODEL_STEPS``, then ``MODEL_STEPS`` greedy decode steps
+MODEL_NAME = "qwen3-4b"
+MODEL_SEED = 0
+MODEL_BATCH, MODEL_PROMPT, MODEL_STEPS = 4, 1024, 32
+#: (b): the same width at ``MODEL_HOST_LAYERS`` layers in f32, TF32 off,
+#: the card against the port on the host with the same weights and tokens
+MODEL_HOST_LAYERS = 2
+MODEL_HOST_PROMPT, MODEL_HOST_STEPS = 128, 4
+#: (a)'s tolerance, each step's logits (and the prefill's) against the
+#: teacher-forced forward's at that position: rtol one bf16 rounding,
+#: atol this fraction of the forward logits' standard deviation (about
+#: 1.01 = 0.02 sqrt(2560)).  A decode step rounds to bf16 after products
+#: of another shape than the forward's (4 tokens against 4,224), at each
+#: of the 36 layers; measured on the H100: 0.118 at most, 11.7 % of the
+#: deviation, so the allowance is about twice that.  Greedy tokens may
+#: still differ at near ties (argmax agreement is logged, not held).
+MODEL_BF16_ATOL_STD = 0.25
+MODEL_BF16_RTOL = 2.0 ** -7
+#: (b)'s tolerance: f32 sums of up to 9,728 terms in another order on the
+#: card and on the host, through two layers and the logits (measured:
+#: 1.2e-5 at most, logits of std about 1)
+MODEL_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def profiled(torch, fn):
+    """``fn()`` under ``torch.profiler``: (its result, device busy ms (the
+    kernels' summed time), kernel launches, the top four kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    top = [f"{_device_ms(e):.3f} ms x{e.count} {e.key[:60]}"
+           for e in sorted(kernels, key=_device_ms, reverse=True)[:4]]
+    return (out, sum(_device_ms(e) for e in kernels),
+            sum(e.count for e in kernels), top)
+
+
+def serve_greedy(torch, model, params, prompt, steps: int, *,
+                 tokens=None, profile: bool = False) -> dict:
+    """Prefill ``prompt`` (B, S), ``pad_caches`` to S + ``steps``, then
+    ``steps`` decode steps fed greedily (or with ``tokens``, (B, steps)),
+    each timed on the host clock to the device's end.  Returns the
+    prefill's last logits (B, V) and seconds, each step's logits (B, V)
+    and seconds, and the tokens fed (B, steps): step i's logits are
+    position S + i's.  With ``profile`` (on the card) the prefill and the
+    last step run under ``torch.profiler`` (:func:`profiled`), their
+    results under ``"prefill_profile"`` and ``"step_profile"``."""
+    from repro_torch.device import synchronize
+    from repro_torch.runtime import (make_decode_step, make_prefill_step,
+                                     pad_caches)
+
+    dev = prompt.device
+    B, S = prompt.shape
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    def call(name, fn, *args, trace=False):
+        if not trace:
+            return fn(*args)
+        result, *out[name] = profiled(torch, lambda: fn(*args))
+        return result
+
+    out = {"steps": [], "step_s": [], "fed": []}
+    synchronize(dev)
+    t0 = time.perf_counter()
+    logits, caches = call("prefill_profile", prefill, params,
+                          {"tokens": prompt}, trace=profile)
+    synchronize(dev)
+    out["prefill"], out["prefill_s"] = logits[:, 0], time.perf_counter() - t0
+    caches = pad_caches(model, caches, B, S + steps)
+    index = torch.full((), S, dtype=torch.int32, device=dev)
+    for i in range(steps):
+        t0 = time.perf_counter()
+        tok = (logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+               if tokens is None else tokens[:, i:i + 1])
+        logits, caches = call("step_profile", decode, params, caches,
+                              {"tokens": tok, "index": index},
+                              trace=profile and i == steps - 1)
+        index = index + 1
+        synchronize(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["steps"].append(logits[:, 0])
+        out["fed"].append(tok)
+    out["fed"] = torch.cat(out["fed"], dim=1)
+    return out
+
+
+def serve_bounds(cfg, batch: int, prompt: int) -> dict:
+    """The least ms the card could take for a prefill of (batch, prompt)
+    and for one decode step after it, each (ms, bound_by): every input
+    read once, every output written once.  A decode step reads every f32
+    parameter and the KV cache and writes one position of it; its
+    operations are 2 a parameter a token.  A prefill reads every
+    parameter and writes the cache; its operations are 2 a trunk
+    parameter a token, causal attention's QK and PV over the pairs the
+    mask keeps, and the last position's logits, at the bf16 rate."""
+    from repro_torch.models import build_model, count_params
+
+    meta = build_model(cfg).param_meta()
+    n_all, n_trunk = count_params(meta), count_params(meta["trunk"])
+    hd = cfg.resolved_head_dim()
+    kv_token = 2 * cfg.num_layers * batch * cfg.num_kv_heads * hd * 2  # bf16
+    head = 2.0 * batch * cfg.vocab_size * cfg.d_model
+    peak = PEAK_FLOPS["bfloat16"]
+    decode_bytes = 4 * n_all + kv_token * (prompt + 1)
+    decode_ops = 2.0 * batch * n_trunk + head
+    pairs = batch * prompt * (prompt + 1) / 2
+    prefill_ops = (2.0 * batch * prompt * n_trunk + head
+                   + 4.0 * pairs * cfg.num_heads * hd * cfg.num_layers)
+    prefill_bytes = 4 * n_all + kv_token * prompt
+    return {"decode": bound_of(decode_ops / peak,
+                               decode_bytes / HBM_BYTES_PER_S)[:2],
+            "decode_bytes": decode_bytes,
+            "prefill": bound_of(prefill_ops / peak,
+                                prefill_bytes / HBM_BYTES_PER_S)[:2]}
+
+
+def logit_errors(got, want, rtol: float, atol: float) -> dict:
+    """(B, V) logits against the oracle's: max abs difference, the worst
+    excess over ``atol + rtol |want|`` (> 0 fails), argmax agreement."""
+    diff = (got.float() - want.float()).abs()
+    excess = diff - (atol + rtol * want.float().abs())
+    return {"max_abs_err": float(diff.max()), "excess": float(excess.max()),
+            "argmax_same": float((got.argmax(-1) == want.argmax(-1))
+                                 .float().mean())}
+
+
+def phase_model(torch, dev) -> dict:
+    """The model zoo's serving path, with the launch counters zeroed just
+    before and read just after.  (a) ``MODEL_NAME`` at full width and
+    depth on the card: params from ``MODEL_SEED``, one warm-up prefill
+    and decode step, then a prefill of ``MODEL_BATCH`` x
+    ``MODEL_PROMPT``, ``pad_caches`` and ``MODEL_STEPS`` greedy decode
+    steps, then a teacher-forced ``forward`` over the prompt and the fed
+    tokens.  Fails on a non-finite logit, or a step or the prefill
+    outside ``MODEL_BF16_*`` of the forward at its position.  Logs
+    prefill tokens/s, decode ms a token (median of the steps after the
+    first) beside the bounds, and the device-memory peak.  (b) the same
+    width at ``MODEL_HOST_LAYERS`` layers in f32 with TF32 off: the card
+    against the port on the host, the same weights and tokens, within
+    ``MODEL_F32_TOL``.  The six kernels' launches over the phase must be
+    0: the zoo keeps its own attention and norms, as the reference's
+    does.  Returns ``{kernel: launches}``."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import full_f32
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, count_params
+    from repro_torch.models.params import tree_map
+
+    card = card_line()
+    cfg = get_config(MODEL_NAME)
+    B, S, T = MODEL_BATCH, MODEL_PROMPT, MODEL_STEPS
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    report = {"card": card, "model": MODEL_NAME, "batch": B, "prompt": S,
+              "steps": T}
+    with torch.inference_mode():
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            MODEL_SEED), device=dev)
+        torch.cuda.synchronize()
+        report["params"] = count_params(model.param_meta())
+        report["init_s"] = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 1)
+        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device=dev, dtype=torch.int32)
+        warm = serve_greedy(torch, model, params, prompt, 2, profile=True)
+        run = serve_greedy(torch, model, params, prompt, T)
+        t0 = time.perf_counter()
+        forward, _ = model.forward(params, {"tokens": torch.cat(
+            [prompt, run["fed"]], dim=1)})
+        torch.cuda.synchronize()
+        report["forward_s"] = time.perf_counter() - t0
+        logits = [run["prefill"]] + run["steps"]
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in logits + [forward])
+        atol = MODEL_BF16_ATOL_STD * float(forward.std())
+        errs = [logit_errors(x, forward[:, S - 1 + i], MODEL_BF16_RTOL, atol)
+                for i, x in enumerate(logits)]
+        del forward, logits, params, warm["steps"], run["steps"]
+    report.update({
+        "cold_prefill_s": warm["prefill_s"], "prefill_s": run["prefill_s"],
+        "prefill_tokens_per_s": B * S / run["prefill_s"],
+        "decode_ms_a_token": statistics.median(run["step_s"][1:]) * 1e3,
+        "prefill_busy_ms": warm["prefill_profile"][0],
+        "prefill_kernels": warm["prefill_profile"][1],
+        "decode_busy_ms": warm["step_profile"][0],
+        "decode_kernels": warm["step_profile"][1],
+        "decode_first_ms": run["step_s"][0] * 1e3,
+        "decode_tokens_per_s": B / statistics.median(run["step_s"][1:]),
+        "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9,
+        "bf16_atol": atol,
+        "bf16_max_abs_err": max(e["max_abs_err"] for e in errs),
+        "bf16_excess": max(e["excess"] for e in errs),
+        "argmax_same": min(e["argmax_same"] for e in errs),
+        "bounds": serve_bounds(cfg, B, S)})
+    torch.cuda.empty_cache()
+
+    # (b) full width, two layers, f32: the card against the host ----------
+    small = cfg.replace(num_layers=MODEL_HOST_LAYERS, dtype="float32")
+    with torch.inference_mode(), full_f32():
+        model = build_model(small)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            MODEL_SEED), device=dev)
+        host_params = tree_map(lambda t: t.cpu(), params)
+        gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 2)
+        prompt = torch.randint(0, cfg.vocab_size, (1, MODEL_HOST_PROMPT),
+                               generator=gen, device=dev, dtype=torch.int32)
+        card_run = serve_greedy(torch, model, params, prompt,
+                                MODEL_HOST_STEPS)
+        t0 = time.perf_counter()
+        host_run = serve_greedy(torch, model, host_params, prompt.cpu(),
+                                MODEL_HOST_STEPS,
+                                tokens=card_run["fed"].cpu())
+        report["host_s"] = time.perf_counter() - t0
+        host_errs = [logit_errors(c.cpu(), h, **MODEL_F32_TOL) for c, h in zip(
+            [card_run["prefill"]] + card_run["steps"],
+            [host_run["prefill"]] + host_run["steps"])]
+        del params, host_params, card_run, host_run
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    report["f32_max_abs_err"] = max(e["max_abs_err"] for e in host_errs)
+    report["f32_excess"] = max(e["excess"] for e in host_errs)
+    report["launches"] = counts
+    log("model serving: " + json.dumps(report))
+    log(f"  {MODEL_NAME} on {card}: prefill {B}x{S} "
+        f"{report['prefill_tokens_per_s']:.0f} tokens/s "
+        f"({report['prefill_s'] * 1e3:.1f} ms, bound "
+        f"{report['bounds']['prefill'][0]:.2f} ms by "
+        f"{report['bounds']['prefill'][1]}), decode "
+        f"{report['decode_ms_a_token']:.2f} ms a token (bound "
+        f"{report['bounds']['decode'][0]:.2f} ms by "
+        f"{report['bounds']['decode'][1]}), peak "
+        f"{report['peak_allocated_gb']:.2f} GB allocated")
+    for stage in ("prefill", "step"):
+        busy, n_kernels, top = warm[f"{stage}_profile"]
+        log(f"  a {stage} under the profiler: device busy {busy:.2f} ms, "
+            f"{n_kernels} kernel launches; top: {'; '.join(top)}")
+    for i, e in enumerate(errs):
+        log(f"  position {S - 1 + i}: max abs err {e['max_abs_err']:.4g} "
+            f"(allowed {atol:.4g} + {MODEL_BF16_RTOL:.4g}|want|), argmax "
+            f"agreement {e['argmax_same']:.2f}")
+    for i, e in enumerate(host_errs):
+        log(f"  f32 card vs host, position {MODEL_HOST_PROMPT - 1 + i}: max "
+            f"abs err {e['max_abs_err']:.4g}")
+    if not finite:
+        raise fail(f"{MODEL_NAME}: non-finite logits")
+    if report["bf16_excess"] > 0:
+        raise fail(f"{MODEL_NAME}: decode differs from the teacher-forced "
+                   f"forward by {report['bf16_max_abs_err']:.4g} (allowed "
+                   f"{atol:.4g} + {MODEL_BF16_RTOL:.4g}|want|)")
+    if report["f32_excess"] > 0:
+        raise fail(f"{MODEL_NAME} x{MODEL_HOST_LAYERS} layers f32: the card "
+                   f"differs from the host by {report['f32_max_abs_err']:.4g}"
+                   f" ({MODEL_F32_TOL})")
+    if any(counts.values()):
+        raise fail(f"the zoo launched a kernel: {counts}")
+    return counts
+
+
+
 #: the population phase's lane counts: two, and the evaluator's
 #: ``DEFAULT_EVAL_BATCH``, the most lanes one population call takes
 LANES = (2, 32)
@@ -2201,7 +2491,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="env,kernels,main,workloads,paper_repro,"
                             "case_studies,population,serve,scenarios,"
-                            "stress,bench",
+                            "stress,model,bench",
                     help="comma list of env, kernels, main (main includes "
                          "the checks and main-path shapes), workloads (the "
                          "other four workloads), paper_repro (the sweep of "
@@ -2212,7 +2502,9 @@ def main(argv=None) -> int:
                          "cluster scenarios on ranks sharing the card), "
                          "stress (the stress tier, the pipeline and the "
                          "elastic restore on ranks sharing the card), "
-                         "bench (needs kernels)")
+                         "model (the model zoo's serving path: qwen3-4b "
+                         "at full width, prefill and decode), bench (needs "
+                         "kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     if "bench" in phases and "kernels" not in phases:
@@ -2284,6 +2576,9 @@ def main(argv=None) -> int:
         stress_launches = {}
         if "stress" in phases:
             stress_launches = timed("stress", phase_stress, torch, dev, work)
+    model_launches = {}
+    if "model" in phases:
+        model_launches = timed("model", phase_model, torch, dev)
     if "bench" in phases:
         entries += timed("bench", phase_bench, torch, dev, kernel_rows)
     for e in entries:  # the other workloads' paths, beside the main one
@@ -2294,6 +2589,7 @@ def main(argv=None) -> int:
         e["serve_launches"] = serve_launches.get(e["name"])
         e["scenario_launches"] = scenario_launches.get(e["name"])
         e["stress_launches"] = stress_launches.get(e["name"])
+        e["model_launches"] = model_launches.get(e["name"])
         e["case_studies_launches"] = {c: n[e["name"]]
                                       for c, n in case_launches.items()}
         e["population_launches"] = population["population_launches"].get(

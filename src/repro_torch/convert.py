@@ -3,6 +3,8 @@ signatures and workload params.  The proxy system itself has no weights;
 both packages compute on the same proxy JSON and the same numpy arrays.
 The AI workloads' params differ only in layout: the reference keeps conv
 kernels HWIO, the port OIHW (dense matrices are ``(din, dout)`` in both).
+The model zoo's params and caches keep the reference's keys, shapes and
+dtypes.
 Nothing here imports the JAX package: proxies arrive as JSON text,
 arrays and params as numpy, signatures as plain field dictionaries.
 """
@@ -71,6 +73,14 @@ def params_to_reference(params: Mapping[str, torch.Tensor]
     HWIO."""
     return {k: (v.permute(2, 3, 1, 0) if v.ndim == 4 else v).detach().cpu()
             .contiguous().numpy() for k, v in params.items()}
+
+
+def model_params_from_reference(tree: Mapping[str, Any],
+                                device: DeviceLike = None) -> Dict[str, Any]:
+    """A reference zoo model's params, or a cache tree, as a nested dict of
+    numpy arrays (``jax.tree.map(np.asarray, tree)``) -> the port's tree on
+    ``device``: the same keys, shapes and dtypes, bfloat16 included."""
+    return tensors_from_numpy(dict(tree), device)
 
 
 _SIGNATURE_FIELDS = ("flops", "bytes", "transcendentals", "peak_memory",

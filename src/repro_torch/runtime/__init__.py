@@ -1,5 +1,5 @@
-"""Runtime layers of the port: fault tolerance, the proxy server and
-telemetry."""
+"""Runtime layers of the port: fault tolerance, the proxy server, the
+model zoo's serve steps and telemetry."""
 from repro_torch.runtime.fault_tolerance import (  # noqa: F401
     FaultTolerantRunner,
     RunnerConfig,
@@ -12,6 +12,11 @@ from repro_torch.runtime.proxy_server import (  # noqa: F401
     ProxyServer,
     ServerClosed,
     percentile,
+)
+from repro_torch.runtime.serve_loop import (  # noqa: F401
+    make_decode_step,
+    make_prefill_step,
+    pad_caches,
 )
 from repro_torch.runtime.telemetry import (  # noqa: F401
     EVENT_KINDS,

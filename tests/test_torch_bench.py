@@ -121,6 +121,14 @@ def test_the_port_imports_nothing_of_jax_or_the_reference():
     assert {f"src/repro_torch/{m}.py" for m in (
         "runtime/__init__", "runtime/telemetry", "core/store", "core/priors",
         "core/evaluator", "bench/paper_repro", "bench/_io")} <= scanned
+    # and the model zoo's (every config module among them)
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "configs/__init__", "configs/base", "configs/qwen3_4b",
+        "configs/whisper_small", "models/__init__", "models/params",
+        "models/flash", "models/layers", "models/trunk", "models/model_zoo",
+        "runtime/serve_loop")} <= scanned
+    assert len([f for f in scanned
+                if f.startswith("src/repro_torch/configs/")]) == 12
     bad = [f"{f.relative_to(ROOT)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f)
            if root in FORBIDDEN]

@@ -102,3 +102,66 @@ def cuda_device() -> torch.device:
         pytest.skip("needs a CUDA device: the kernels run only on the GPU "
                     "(python3 chip_smoke.py checks them there)")
     return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# the model zoo: one config in both packages, the same weights
+# ---------------------------------------------------------------------------
+
+#: the configs the port builds; the other five raise NotImplementedError
+ZOO_BUILDABLE = ("qwen3-4b", "tinyllama-1.1b", "mistral-nemo-12b",
+                 "gemma2-9b", "internvl2-1b")
+ZOO_UNPORTED = ("deepseek-v2-lite-16b", "deepseek-v3-671b", "mamba2-780m",
+                "recurrentgemma-9b", "whisper-small")
+
+
+def zoo_pair(name: str, dtype: str = "float32", *, layers: int = 2,
+             seed: int = 0, **overrides):
+    """``reduced(get_config(name), layers=layers)`` at compute ``dtype`` in
+    both packages, built, with the reference's weights from ``seed``
+    handed to the port: ``(ref_model, ref_params, port_model,
+    port_params)``."""
+    import jax
+
+    from repro.configs import get_config as ref_get, reduced as ref_reduced
+    from repro.models import build_model as ref_build
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import model_params_from_reference
+    from repro_torch.models import build_model
+
+    rcfg = ref_reduced(ref_get(name), layers=layers).replace(
+        dtype=dtype, **overrides)
+    cfg = reduced(get_config(name), layers=layers).replace(
+        dtype=dtype, **overrides)
+    rm, m = ref_build(rcfg), build_model(cfg)
+    rp = rm.init(jax.random.key(seed))
+    return rm, rp, m, model_params_from_reference(jax_tree_to_numpy(rp),
+                                                  "cpu")
+
+
+def flat(tree, prefix: str = "") -> dict:
+    """Nested dicts -> {"a/b/c": leaf}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def bf16_tol(want) -> dict:
+    """The bf16 tolerance of the zoo's parity tests: ``rtol`` one bf16
+    rounding (2^-7) and ``atol`` a tenth of the reference output's
+    standard deviation.  Measured on the reduced configs (two layers, seed
+    0): the port's forward, prefill, cache and decode outputs lie within
+    4.6 % of that deviation of the reference's; each product and norm
+    rounds to bf16 in both packages, at sums taken in another order."""
+    return dict(rtol=2.0 ** -7, atol=0.1 * float(np.std(as_np(want))))
+
+
+#: the f32 tolerance of the zoo's parity tests (measured: 4e-6 at most)
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def zoo_tol(dtype: str, want) -> dict:
+    return F32_TOL if dtype == "float32" else bf16_tol(want)
