@@ -155,12 +155,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    steps, then a teacher-forced ``forward`` over the same 1056 tokens;
    fails on a non-finite logit or a step outside ``MODEL_BF16_*`` of the
    forward at its position, and logs prefill tokens/s, decode ms a token
-   (median of the steps after the first) beside the bounds, and the
-   device-memory peak; (b) the same width at two layers in f32 with TF32
+   (median of the steps after the first) beside the bounds, the device
+   busy time and top kernels of a profiled prefill and step, the
+   device-memory peak, and for each row whose greedy token differs from
+   the forward's argmax the forward's top-1 minus top-2 logit beside the
+   position's error; (b) the same width at two layers in f32 with TF32
    off, a prefill of 128 tokens and 4 decode steps on the card against
    the port on the host on the same weights and tokens
-   (``MODEL_F32_TOL``).  Fails if any of the six kernels launched: the
-   zoo keeps its own attention and norms, as the reference's does;
+   (``MODEL_F32_TOL``).  (a') deepseek-v2-lite-16b (multi-head latent
+   attention, 26 MoE layers of 64 experts, top 6) at full width and
+   depth, 15.7 B f32 params (62.8 GB): as (a) with a prompt of 4 x 992,
+   ``pad_caches`` to 1024 and 32 steps, timed at its shipped capacity
+   factor; the oracle serves the same weights again at a capacity where
+   no group of the run drops, and its forward over 4 x 1024 tokens (one
+   MoE group) holds it at ``MOE_BF16_ATOL_STD``; logs where its routing
+   differs from the forward's, and the assignments the shipped
+   capacity's forward over the same tokens drops and its gap to the
+   no-drop one (neither held); (a'') the same oracle in f32 on one row
+   of the prompt (``MOE_F32_TOL``); (b') as (b) at its width (one dense,
+   one MoE layer).  Fails if any of the six kernels launched: the zoo keeps its
+   own attention, norms and MoE dispatch, as the reference's does;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -1963,6 +1977,35 @@ MODEL_BF16_RTOL = 2.0 ** -7
 #: card and on the host, through two layers and the logits (measured:
 #: 1.2e-5 at most, logits of std about 1)
 MODEL_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+#: (a'): an MoE model with multi-head latent attention at full width and
+#: depth, deepseek-v2-lite-16b (27 layers, d_model 2048, 16 heads; MLA
+#: kv_lora 512, rope 64, nope 128, v 128, no q-LoRA; layer 0 dense of
+#: d_ff 10,944, then 26 MoE layers of 64 routed experts of width 1408,
+#: top 6, and 2 shared; capacity factor 1.25, groups of 4096 tokens;
+#: vocab 102,400; 15,706,484,224 f32 params = 62.8 GB from
+#: ``MODEL_SEED``, bf16 activations).  The prompt is 992 tokens so that
+#: the prefill's 4 x 992 tokens form one MoE group and the teacher-forced
+#: forward over the prompt and the 32 fed tokens exactly one, 4 x 1024 =
+#: 4096: past one group the reference requires whole groups.  (b'): its
+#: width at ``MODEL_HOST_LAYERS`` layers (one dense, one MoE), as (b).
+MOE_MODEL_NAME = "deepseek-v2-lite-16b"
+MOE_BATCH, MOE_PROMPT, MOE_STEPS = 4, 992, 32
+#: (a')'s bf16 tolerance, as (a)'s but atol this fraction of the forward
+#: logits' std (about 1.0).  In bf16 a decode step's MoE input differs by
+#: rounding from the forward's, a token at a near tie of its router then
+#: takes another expert, and over 26 MoE layers that moves the logits far
+#: more than in a dense model: measured on the H100, 1.11 x the std at
+#: most, on two runs alike.  So this bf16 check catches only gross
+#: faults, and the f32 oracle below holds the same path closely.
+MOE_BF16_ATOL_STD = 2.0
+#: (a'') the oracle again in f32 at full width and depth (params are f32
+#: already, so nothing is cast), ``MOE_F32_BATCH`` rows of the same
+#: prompt at the no-drop capacity, each step within ``MOE_F32_TOL`` of the
+#: f32 forward at its position: f32 products of other shapes than the
+#: forward's, summed in another order (measured on the H100: 2.1e-5 at
+#: most, argmax agreeing at every position)
+MOE_F32_BATCH = 1
+MOE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def profiled(torch, fn):
@@ -2035,180 +2078,445 @@ def serve_bounds(cfg, batch: int, prompt: int) -> dict:
     """The least ms the card could take for a prefill of (batch, prompt)
     and for one decode step after it, each (ms, bound_by): every input
     read once, every output written once.  A decode step reads every f32
-    parameter and the KV cache and writes one position of it; its
-    operations are 2 a parameter a token.  A prefill reads every
-    parameter and writes the cache; its operations are 2 a trunk
-    parameter a token, causal attention's QK and PV over the pairs the
-    mask keeps, and the last position's logits, at the bf16 rate."""
+    parameter that is not a routed expert, the routed experts its
+    ``batch * k`` assignments can reach (``min(E, batch * k) / E`` of
+    them: the most one step's tokens can pick), and the cache (K and V of
+    each KV head, or MLA's ``kv_lora + rope`` latent, 2 bytes a value),
+    and writes one position of it; its operations are 2 an active
+    parameter a token (routed experts: k of E).  A prefill reads every
+    parameter and writes the cache; its operations are 2 an active trunk
+    parameter a token, causal attention's QK (qk head dim) and PV (v head
+    dim) over the pairs the mask keeps, and the last position's logits,
+    at the bf16 rate."""
     from repro_torch.models import build_model, count_params
 
     meta = build_model(cfg).param_meta()
     n_all, n_trunk = count_params(meta), count_params(meta["trunk"])
-    hd = cfg.resolved_head_dim()
-    kv_token = 2 * cfg.num_layers * batch * cfg.num_kv_heads * hd * 2  # bf16
+    L = cfg.num_layers
+    if cfg.mla is not None:
+        m_ = cfg.mla
+        kv_token = L * batch * (m_.kv_lora_rank + m_.rope_head_dim) * 2
+        qk, vd = m_.nope_head_dim + m_.rope_head_dim, m_.v_head_dim
+    else:
+        qk = vd = cfg.resolved_head_dim()
+        kv_token = 2 * L * batch * cfg.num_kv_heads * qk * 2  # bf16
+    routed = idle = 0  # routed expert params; those a token leaves idle
+    reach = 1.0
+    if cfg.moe is not None:
+        mo = cfg.moe
+        per_expert = 3 * cfg.d_model * mo.d_ff
+        n_moe = L - min(mo.first_dense_layers, L)
+        routed = n_moe * mo.num_experts * per_expert
+        idle = n_moe * (mo.num_experts - mo.experts_per_token) * per_expert
+        reach = min(mo.num_experts,
+                    batch * mo.experts_per_token) / mo.num_experts
+    active = n_trunk - idle
     head = 2.0 * batch * cfg.vocab_size * cfg.d_model
     peak = PEAK_FLOPS["bfloat16"]
-    decode_bytes = 4 * n_all + kv_token * (prompt + 1)
-    decode_ops = 2.0 * batch * n_trunk + head
+    decode_bytes = (4 * (n_all - routed) + 4 * routed * reach
+                    + kv_token * (prompt + 1))
+    decode_ops = 2.0 * batch * active + head
     pairs = batch * prompt * (prompt + 1) / 2
-    prefill_ops = (2.0 * batch * prompt * n_trunk + head
-                   + 4.0 * pairs * cfg.num_heads * hd * cfg.num_layers)
+    prefill_ops = (2.0 * batch * prompt * active + head
+                   + 2.0 * pairs * cfg.num_heads * (qk + vd) * L)
     prefill_bytes = 4 * n_all + kv_token * prompt
     return {"decode": bound_of(decode_ops / peak,
                                decode_bytes / HBM_BYTES_PER_S)[:2],
             "decode_bytes": decode_bytes,
             "prefill": bound_of(prefill_ops / peak,
-                                prefill_bytes / HBM_BYTES_PER_S)[:2]}
+                                prefill_bytes / HBM_BYTES_PER_S)[:2],
+            "prefill_ops": prefill_ops}
 
 
 def logit_errors(got, want, rtol: float, atol: float) -> dict:
     """(B, V) logits against the oracle's: max abs difference, the worst
-    excess over ``atol + rtol |want|`` (> 0 fails), argmax agreement."""
+    excess over ``atol + rtol |want|`` (> 0 fails), argmax agreement, and
+    for each row whose argmax differs the oracle's top-1 minus top-2
+    logit (``ties``: (row, gap) pairs)."""
     diff = (got.float() - want.float()).abs()
     excess = diff - (atol + rtol * want.float().abs())
+    differs = got.argmax(-1) != want.argmax(-1)
+    top2 = want.float().topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
     return {"max_abs_err": float(diff.max()), "excess": float(excess.max()),
-            "argmax_same": float((got.argmax(-1) == want.argmax(-1))
-                                 .float().mean())}
+            "argmax_same": float((~differs).float().mean()),
+            "ties": [(r, gaps[r]) for r in range(len(gaps))
+                     if bool(differs[r])]}
+
+
+class RouteLog:
+    """While active, each call of the zoo's MoE layer records its tokens'
+    top-k experts, ascending, on the device ((B, S, k)), in ``calls``,
+    and the assignments its capacity drops in ``dropped`` (of
+    ``assigned``).  The routing is recomputed beside the layer (f32
+    router, softmax, top-k), so the run itself is unchanged; it is for
+    the oracle runs, never for a timed one."""
+
+    def __init__(self, torch):
+        from repro_torch.models import layers
+
+        self.torch, self.layers = torch, layers
+        self.calls, self.dropped, self.assigned = [], [], 0
+
+    def __enter__(self):
+        torch, orig = self.torch, self.layers.moe_apply
+        self.orig = orig
+
+        def moe_apply(p, cfg, x):
+            mo = cfg.moe
+            logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
+            top = torch.topk(torch.softmax(logits, dim=-1),
+                             mo.experts_per_token, dim=-1).indices
+            self.calls.append(top.sort(dim=-1).values.view(
+                x.shape[0], x.shape[1], -1))
+            T = top.shape[0]
+            tg = min(mo.group_size, T)
+            ids = top.view(T // tg, -1)
+            counts = torch.zeros((ids.shape[0], mo.num_experts),
+                                 dtype=torch.int64, device=x.device)
+            counts.scatter_add_(1, ids, torch.ones_like(ids))
+            cap = self.layers._capacity(mo, tg)
+            self.dropped.append((counts - cap).clamp(min=0).sum())
+            self.assigned += ids.numel()
+            return orig(p, cfg, x)
+
+        self.layers.moe_apply = moe_apply
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_apply = self.orig
+
+
+def routing_flips(torch, served, forward, steps: int) -> dict:
+    """Where a served run's MoE routing differs from its teacher-forced
+    forward's: ``served`` the :class:`RouteLog` calls of a prefill and
+    ``steps`` decode steps, ``forward`` those of one forward over the same
+    tokens, one call a MoE layer each.  A token's choice at a near tie of
+    its router can flip with the bf16 rounding of its input, which
+    differs between the prefill or a decode step and the forward.
+    Returns the tokens that chose other experts at some layer and the
+    (token, layer) pairs that did, each beside its total."""
+    n = len(forward)
+    got = [torch.cat([served[j]] + [served[n * (i + 1) + j]
+                                    for i in range(steps)], dim=1)
+           for j in range(n)]
+    flips = torch.stack([(f != g).any(-1) for f, g in zip(forward, got)])
+    tokens = flips.any(0)
+    return {"layers": n, "tokens": int(tokens.sum()), "of": tokens.numel(),
+            "token_layer_flips": int(flips.sum()),
+            "of_pairs": flips.numel()}
+
+
+def hold_to_forward(torch, model, params, prompt, run, rtol: float, *,
+                    atol: float = None, atol_std: float = None,
+                    routes=None) -> tuple:
+    """A served ``run`` of ``prompt`` held to ``model``'s teacher-forced
+    ``forward`` over the prompt and the run's fed tokens: each step's
+    logits and the prefill's against the forward's at that position,
+    within ``rtol`` and ``atol`` (or ``atol_std`` x the forward logits'
+    std).  The forward runs under ``routes`` (a :class:`RouteLog`) when
+    given.  Returns ({errors a position, atol, finite, forward seconds},
+    the forward's logits)."""
+    S = prompt.shape[1]
+    tokens = torch.cat([prompt, run["fed"]], dim=1)
+    t0 = time.perf_counter()
+    if routes is None:
+        forward, _ = model.forward(params, {"tokens": tokens})
+    else:
+        with routes:
+            forward, _ = model.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    logits = [run["prefill"]] + run["steps"]
+    finite = all(bool(torch.isfinite(x).all()) for x in logits + [forward])
+    if atol is None:
+        atol = atol_std * float(forward.std())
+    errs = [logit_errors(x, forward[:, S - 1 + i], rtol, atol)
+            for i, x in enumerate(logits)]
+    return {"errs": errs, "atol": atol, "finite": finite,
+            "forward_s": forward_s, "tokens": tokens}, forward
+
+
+def serve_full(torch, dev, cfg, batch: int, prompt_len: int, steps: int,
+               *, oracle_cfg=None) -> tuple:
+    """(a) and (a'): ``cfg`` at full width and depth on the card, params
+    from ``MODEL_SEED``: a profiled warm-up prefill and 2 steps, then a
+    timed prefill of ``batch`` x ``prompt_len``, ``pad_caches`` and
+    ``steps`` greedy decode steps, held to its teacher-forced forward
+    (:func:`hold_to_forward`, ``MODEL_BF16_*``).  With an MoE
+    ``oracle_cfg`` (the same weights at a capacity that drops nothing) the
+    timed run is not held; the oracle serves the prompt again under
+    ``oracle_cfg`` and is held to its forward at ``MOE_BF16_ATOL_STD``,
+    with where its routing differs from its forward's
+    (:func:`routing_flips`), the assignments ``cfg``'s forward over the
+    same tokens drops and its gap to the oracle's (neither held); then
+    (a'') the oracle in f32 on ``MOE_F32_BATCH`` rows of the prompt,
+    held at ``MOE_F32_TOL``.  Returns the report, the held positions'
+    errors (and the f32 oracle's, or ``[]``), and whether every logit was
+    finite; frees the params."""
+    import statistics
+
+    from repro_torch.models import build_model, count_params
+
+    B, S, T = batch, prompt_len, steps
+    report = {"model": cfg.name, "batch": B, "prompt": S, "steps": T}
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(
+        MODEL_SEED), device=dev)
+    torch.cuda.synchronize()
+    report["params"] = count_params(model.param_meta())
+    report["init_s"] = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    warm = serve_greedy(torch, model, params, prompt, 2, profile=True)
+    timed = serve_greedy(torch, model, params, prompt, T)
+    report["serve_peak_allocated_gb"] = (
+        torch.cuda.max_memory_allocated(dev) / 1e9)
+    f32_errs = []
+    if oracle_cfg is None:
+        held, forward = hold_to_forward(
+            torch, model, params, prompt, timed, MODEL_BF16_RTOL,
+            atol_std=MODEL_BF16_ATOL_STD)
+        finite = held["finite"]
+    else:
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in [timed["prefill"]] + timed["steps"])
+        del timed["steps"]
+        oracle_model = build_model(oracle_cfg)
+        routes = RouteLog(torch)
+        with routes:
+            run = serve_greedy(torch, oracle_model, params, prompt, T)
+        served, routes.calls = routes.calls, []
+        held, forward = hold_to_forward(
+            torch, oracle_model, params, prompt, run, MODEL_BF16_RTOL,
+            atol_std=MOE_BF16_ATOL_STD, routes=routes)
+        report["routing"] = routing_flips(torch, served, routes.calls, T)
+        del served, routes, run
+        # the shipped capacity's forward over the same tokens: its drops
+        # and its gap to the no-drop forward (not held)
+        shipped_routes = RouteLog(torch)
+        with shipped_routes:
+            shipped, _ = model.forward(params, {"tokens": held["tokens"]})
+        report["shipped_dropped"] = int(sum(shipped_routes.dropped))
+        report["shipped_assigned"] = shipped_routes.assigned
+        report["capacity_gap_max_abs"] = float(
+            (shipped - forward).abs().max())
+        report["capacity_gap_argmax_same"] = float(
+            (shipped.argmax(-1) == forward.argmax(-1)).float().mean())
+        del shipped, shipped_routes, forward
+        # (a'') the oracle in f32: no weight is cast, TF32 is off
+        f32_model = build_model(oracle_cfg.replace(dtype="float32"))
+        f32_prompt = prompt[:MOE_F32_BATCH]
+        f32_run = serve_greedy(torch, f32_model, params, f32_prompt, T)
+        f32, forward = hold_to_forward(
+            torch, f32_model, params, f32_prompt, f32_run,
+            MOE_F32_TOL["rtol"], atol=MOE_F32_TOL["atol"])
+        f32_errs = f32["errs"]
+        report["f32_oracle_max_abs_err"] = max(
+            e["max_abs_err"] for e in f32_errs)
+        report["f32_oracle_excess"] = max(e["excess"] for e in f32_errs)
+        finite = finite and held["finite"] and f32["finite"]
+        del f32_run, f32
+    del forward
+    report["forward_s"] = held["forward_s"]
+    errs = held["errs"]
+    steps_s = timed["step_s"]
+    report.update({
+        "cold_prefill_s": warm["prefill_s"], "prefill_s": timed["prefill_s"],
+        "prefill_tokens_per_s": B * S / timed["prefill_s"],
+        "decode_ms_a_token": statistics.median(steps_s[1:]) * 1e3,
+        "prefill_busy_ms": warm["prefill_profile"][0],
+        "prefill_kernels": warm["prefill_profile"][1],
+        "prefill_top": warm["prefill_profile"][2],
+        "decode_busy_ms": warm["step_profile"][0],
+        "decode_kernels": warm["step_profile"][1],
+        "decode_top": warm["step_profile"][2],
+        "decode_first_ms": steps_s[0] * 1e3,
+        "decode_tokens_per_s": B / statistics.median(steps_s[1:]),
+        "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9,
+        "bf16_atol": held["atol"],
+        "bf16_max_abs_err": max(e["max_abs_err"] for e in errs),
+        "bf16_excess": max(e["excess"] for e in errs),
+        "argmax_same": min(e["argmax_same"] for e in errs),
+        "bounds": serve_bounds(cfg, B, S)})
+    ties = [(S - 1 + i, r, g, e["max_abs_err"])
+            for i, e in enumerate(errs) for r, g in e["ties"]]
+    report["argmax_splits"] = {
+        "positions": sum(1 for e in errs if e["ties"]), "rows": len(ties),
+        "max_gap": max((g for _, _, g, _ in ties), default=None),
+        "every_gap_under_the_error": all(g < err for _, _, g, err in ties)}
+    del params
+    return report, errs, ties, f32_errs, finite
+
+
+def host_check(torch, dev, cfg) -> tuple:
+    """(b) and (b'): ``cfg`` at ``MODEL_HOST_LAYERS`` layers in f32 (TF32
+    off by the caller): a prefill of ``MODEL_HOST_PROMPT`` tokens and
+    ``MODEL_HOST_STEPS`` decode steps on the card, then the same weights
+    and tokens through the port on the host.  Returns each position's
+    errors (``MODEL_F32_TOL``) and the host's seconds."""
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_map
+
+    small = cfg.replace(num_layers=MODEL_HOST_LAYERS, dtype="float32")
+    model = build_model(small)
+    params = model.init(torch.Generator(device=dev).manual_seed(
+        MODEL_SEED), device=dev)
+    host_params = tree_map(lambda t: t.cpu(), params)
+    gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, MODEL_HOST_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    card_run = serve_greedy(torch, model, params, prompt, MODEL_HOST_STEPS)
+    t0 = time.perf_counter()
+    host_run = serve_greedy(torch, model, host_params, prompt.cpu(),
+                            MODEL_HOST_STEPS, tokens=card_run["fed"].cpu())
+    host_s = time.perf_counter() - t0
+    return [logit_errors(c.cpu(), h, **MODEL_F32_TOL) for c, h in zip(
+        [card_run["prefill"]] + card_run["steps"],
+        [host_run["prefill"]] + host_run["steps"])], host_s
+
+
+def log_serving(card: str, r: dict, errs: list, ties: list, f32_errs: list,
+                host_errs: list) -> None:
+    """The lines of one model's serving run (a), its f32 oracle (a'') and
+    its host check (b)."""
+    name, b = r["model"], r["bounds"]
+    log(f"  {name} on {card}: prefill {r['batch']}x{r['prompt']} "
+        f"{r['prefill_tokens_per_s']:.0f} tokens/s "
+        f"({r['prefill_s'] * 1e3:.1f} ms, bound {b['prefill'][0]:.2f} ms by "
+        f"{b['prefill'][1]}), decode {r['decode_ms_a_token']:.2f} ms a token "
+        f"(bound {b['decode'][0]:.2f} ms by {b['decode'][1]}), peak "
+        f"{r['peak_allocated_gb']:.2f} GB allocated "
+        f"({r['peak_reserved_gb']:.2f} reserved; the timed serving's "
+        f"{r['serve_peak_allocated_gb']:.2f}, beside the f32 params' "
+        f"{r['params'] * 4 / 1e9:.2f})")
+    for stage in ("prefill", "decode"):
+        log(f"  a {stage} under the profiler: device busy "
+            f"{r[stage + '_busy_ms']:.2f} ms, {r[stage + '_kernels']} kernel "
+            f"launches; top: {'; '.join(r[stage + '_top'])}")
+    if "routing" in r:
+        g = r["routing"]
+        log(f"  routing: {g['tokens']} of {g['of']} tokens of the oracle run "
+            f"chose other top-{r['k']} experts than its forward at some of "
+            f"the {g['layers']} MoE layers ({g['token_layer_flips']} of "
+            f"{g['of_pairs']} (token, layer) pairs); the shipped capacity's "
+            f"forward over the same tokens drops {r['shipped_dropped']} of "
+            f"{r['shipped_assigned']} assignments and differs from the "
+            f"no-drop forward by {r['capacity_gap_max_abs']:.4g} (argmax "
+            f"agreement {r['capacity_gap_argmax_same']:.4f}; not held)")
+    for i, e in enumerate(errs):
+        log(f"  {name} position {r['prompt'] - 1 + i}: max abs err "
+            f"{e['max_abs_err']:.4g} (allowed {r['bf16_atol']:.4g} + "
+            f"{MODEL_BF16_RTOL:.4g}|want|), argmax agreement "
+            f"{e['argmax_same']:.2f}")
+    for pos, row, gap, err in ties:
+        log(f"  {name} argmax split at position {pos}, row {row}: the "
+            f"forward's top-1 minus top-2 logit {gap:.4g}, the position's "
+            f"max abs err {err:.4g} ({'a tie' if gap < err else 'NOT a tie'})")
+    s = r["argmax_splits"]
+    log(f"  {name} argmax splits: {s['rows']} rows at {s['positions']} "
+        f"positions, largest gap {s['max_gap']}, every gap under its "
+        f"position's error: {s['every_gap_under_the_error']}")
+    for i, e in enumerate(f32_errs):
+        log(f"  {name} f32 oracle, position {r['prompt'] - 1 + i}: max abs "
+            f"err {e['max_abs_err']:.4g} ({MOE_F32_TOL}), argmax agreement "
+            f"{e['argmax_same']:.2f}")
+    for i, e in enumerate(host_errs):
+        log(f"  {name} f32 card vs host, position {MODEL_HOST_PROMPT - 1 + i}"
+            f": max abs err {e['max_abs_err']:.4g}")
 
 
 def phase_model(torch, dev) -> dict:
     """The model zoo's serving path, with the launch counters zeroed just
     before and read just after.  (a) ``MODEL_NAME`` at full width and
-    depth on the card: params from ``MODEL_SEED``, one warm-up prefill
-    and decode step, then a prefill of ``MODEL_BATCH`` x
-    ``MODEL_PROMPT``, ``pad_caches`` and ``MODEL_STEPS`` greedy decode
-    steps, then a teacher-forced ``forward`` over the prompt and the fed
-    tokens.  Fails on a non-finite logit, or a step or the prefill
-    outside ``MODEL_BF16_*`` of the forward at its position.  Logs
-    prefill tokens/s, decode ms a token (median of the steps after the
-    first) beside the bounds, and the device-memory peak.  (b) the same
-    width at ``MODEL_HOST_LAYERS`` layers in f32 with TF32 off: the card
-    against the port on the host, the same weights and tokens, within
-    ``MODEL_F32_TOL``.  The six kernels' launches over the phase must be
-    0: the zoo keeps its own attention and norms, as the reference's
-    does.  Returns ``{kernel: launches}``."""
-    import statistics
+    depth on the card (:func:`serve_full`): params from ``MODEL_SEED``,
+    one warm-up prefill and decode steps, then a prefill of
+    ``MODEL_BATCH`` x ``MODEL_PROMPT``, ``pad_caches`` and ``MODEL_STEPS``
+    greedy decode steps, then a teacher-forced ``forward`` over the
+    prompt and the fed tokens.  Fails on a non-finite logit, or a step or
+    the prefill outside ``MODEL_BF16_*`` of the forward at its position.
+    Logs prefill tokens/s, decode ms a token (median of the steps after
+    the first) beside the bounds, and the device-memory peak.  (b) the
+    same width at ``MODEL_HOST_LAYERS`` layers in f32 with TF32 off: the
+    card against the port on the host, the same weights and tokens,
+    within ``MODEL_F32_TOL`` (:func:`host_check`).  (a') and (b') the
+    same for ``MOE_MODEL_NAME`` (``MOE_BATCH`` x ``MOE_PROMPT``,
+    ``MOE_STEPS``), timed at its shipped capacity factor; its oracle run
+    serves the same weights again at a capacity factor where no group of
+    the run drops an assignment (``_capacity(mo, Tg) >= Tg``, asserted),
+    since a forward group drops its overflow by design and a decode step
+    never does.  For each row whose greedy token differs from the
+    forward's argmax, the forward's top-1 minus top-2 logit is logged
+    beside the position's error.  The six kernels' launches over the
+    phase must be 0: the zoo keeps its own attention, norms and MoE
+    dispatch, as the reference's does.  Returns ``{kernel: launches}``."""
+    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.device import full_f32
     from repro_torch.kernels import ops
-    from repro_torch.models import build_model, count_params
-    from repro_torch.models.params import tree_map
+    from repro_torch.models.layers import _capacity
 
     card = card_line()
-    cfg = get_config(MODEL_NAME)
-    B, S, T = MODEL_BATCH, MODEL_PROMPT, MODEL_STEPS
     torch.cuda.synchronize()
     ops.reset_launches()
-    torch.cuda.reset_peak_memory_stats(dev)
-    report = {"card": card, "model": MODEL_NAME, "batch": B, "prompt": S,
-              "steps": T}
-    with torch.inference_mode():
-        model = build_model(cfg)
+    report = {"card": card}
+    for name, (B, S, T) in ((MODEL_NAME, (MODEL_BATCH, MODEL_PROMPT,
+                                           MODEL_STEPS)),
+                            (MOE_MODEL_NAME, (MOE_BATCH, MOE_PROMPT,
+                                              MOE_STEPS))):
+        cfg = get_config(name)
+        oracle_cfg = None
+        if cfg.moe is not None:
+            mo = cfg.moe
+            oracle_cfg = cfg.replace(moe=dataclasses.replace(
+                mo, capacity_factor=mo.num_experts / mo.experts_per_token
+                + 0.01))
+            for tg in (B * S, B * (S + T), B):  # prefill, forward, decode
+                tg = min(mo.group_size, tg)
+                if _capacity(oracle_cfg.moe, tg) < tg:
+                    raise fail(f"{name}: the oracle's capacity drops in a "
+                               f"group of {tg}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        params = model.init(torch.Generator(device=dev).manual_seed(
-            MODEL_SEED), device=dev)
-        torch.cuda.synchronize()
-        report["params"] = count_params(model.param_meta())
-        report["init_s"] = time.perf_counter() - t0
-        gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 1)
-        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                               device=dev, dtype=torch.int32)
-        warm = serve_greedy(torch, model, params, prompt, 2, profile=True)
-        run = serve_greedy(torch, model, params, prompt, T)
-        t0 = time.perf_counter()
-        forward, _ = model.forward(params, {"tokens": torch.cat(
-            [prompt, run["fed"]], dim=1)})
-        torch.cuda.synchronize()
-        report["forward_s"] = time.perf_counter() - t0
-        logits = [run["prefill"]] + run["steps"]
-        finite = all(bool(torch.isfinite(x).all())
-                     for x in logits + [forward])
-        atol = MODEL_BF16_ATOL_STD * float(forward.std())
-        errs = [logit_errors(x, forward[:, S - 1 + i], MODEL_BF16_RTOL, atol)
-                for i, x in enumerate(logits)]
-        del forward, logits, params, warm["steps"], run["steps"]
-    report.update({
-        "cold_prefill_s": warm["prefill_s"], "prefill_s": run["prefill_s"],
-        "prefill_tokens_per_s": B * S / run["prefill_s"],
-        "decode_ms_a_token": statistics.median(run["step_s"][1:]) * 1e3,
-        "prefill_busy_ms": warm["prefill_profile"][0],
-        "prefill_kernels": warm["prefill_profile"][1],
-        "decode_busy_ms": warm["step_profile"][0],
-        "decode_kernels": warm["step_profile"][1],
-        "decode_first_ms": run["step_s"][0] * 1e3,
-        "decode_tokens_per_s": B / statistics.median(run["step_s"][1:]),
-        "peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-        "peak_reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9,
-        "bf16_atol": atol,
-        "bf16_max_abs_err": max(e["max_abs_err"] for e in errs),
-        "bf16_excess": max(e["excess"] for e in errs),
-        "argmax_same": min(e["argmax_same"] for e in errs),
-        "bounds": serve_bounds(cfg, B, S)})
-    torch.cuda.empty_cache()
-
-    # (b) full width, two layers, f32: the card against the host ----------
-    small = cfg.replace(num_layers=MODEL_HOST_LAYERS, dtype="float32")
-    with torch.inference_mode(), full_f32():
-        model = build_model(small)
-        params = model.init(torch.Generator(device=dev).manual_seed(
-            MODEL_SEED), device=dev)
-        host_params = tree_map(lambda t: t.cpu(), params)
-        gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 2)
-        prompt = torch.randint(0, cfg.vocab_size, (1, MODEL_HOST_PROMPT),
-                               generator=gen, device=dev, dtype=torch.int32)
-        card_run = serve_greedy(torch, model, params, prompt,
-                                MODEL_HOST_STEPS)
-        t0 = time.perf_counter()
-        host_run = serve_greedy(torch, model, host_params, prompt.cpu(),
-                                MODEL_HOST_STEPS,
-                                tokens=card_run["fed"].cpu())
-        report["host_s"] = time.perf_counter() - t0
-        host_errs = [logit_errors(c.cpu(), h, **MODEL_F32_TOL) for c, h in zip(
-            [card_run["prefill"]] + card_run["steps"],
-            [host_run["prefill"]] + host_run["steps"])]
-        del params, host_params, card_run, host_run
-    torch.cuda.empty_cache()
+        with torch.inference_mode():
+            r, errs, ties, f32_errs, finite = serve_full(
+                torch, dev, cfg, B, S, T, oracle_cfg=oracle_cfg)
+        if cfg.moe is not None:
+            r["k"] = cfg.moe.experts_per_token
+        torch.cuda.empty_cache()
+        with torch.inference_mode(), full_f32():
+            host_errs, r["host_s"] = host_check(torch, dev, cfg)
+        torch.cuda.empty_cache()
+        r["f32_max_abs_err"] = max(e["max_abs_err"] for e in host_errs)
+        r["f32_excess"] = max(e["excess"] for e in host_errs)
+        r["seconds"] = time.perf_counter() - t0
+        report[name] = r
+        log_serving(card, r, errs, ties, f32_errs, host_errs)
+        if not finite:
+            raise fail(f"{name}: non-finite logits")
+        if r["bf16_excess"] > 0:
+            raise fail(f"{name}: decode differs from the teacher-forced "
+                       f"forward by {r['bf16_max_abs_err']:.4g} (allowed "
+                       f"{r['bf16_atol']:.4g} + {MODEL_BF16_RTOL:.4g}|want|)")
+        if r.get("f32_oracle_excess", 0) > 0:
+            raise fail(f"{name}: f32 decode differs from the f32 forward by "
+                       f"{r['f32_oracle_max_abs_err']:.4g} ({MOE_F32_TOL})")
+        if r["f32_excess"] > 0:
+            raise fail(f"{name} x{MODEL_HOST_LAYERS} layers f32: the card "
+                       f"differs from the host by {r['f32_max_abs_err']:.4g}"
+                       f" ({MODEL_F32_TOL})")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    report["f32_max_abs_err"] = max(e["max_abs_err"] for e in host_errs)
-    report["f32_excess"] = max(e["excess"] for e in host_errs)
     report["launches"] = counts
     log("model serving: " + json.dumps(report))
-    log(f"  {MODEL_NAME} on {card}: prefill {B}x{S} "
-        f"{report['prefill_tokens_per_s']:.0f} tokens/s "
-        f"({report['prefill_s'] * 1e3:.1f} ms, bound "
-        f"{report['bounds']['prefill'][0]:.2f} ms by "
-        f"{report['bounds']['prefill'][1]}), decode "
-        f"{report['decode_ms_a_token']:.2f} ms a token (bound "
-        f"{report['bounds']['decode'][0]:.2f} ms by "
-        f"{report['bounds']['decode'][1]}), peak "
-        f"{report['peak_allocated_gb']:.2f} GB allocated")
-    for stage in ("prefill", "step"):
-        busy, n_kernels, top = warm[f"{stage}_profile"]
-        log(f"  a {stage} under the profiler: device busy {busy:.2f} ms, "
-            f"{n_kernels} kernel launches; top: {'; '.join(top)}")
-    for i, e in enumerate(errs):
-        log(f"  position {S - 1 + i}: max abs err {e['max_abs_err']:.4g} "
-            f"(allowed {atol:.4g} + {MODEL_BF16_RTOL:.4g}|want|), argmax "
-            f"agreement {e['argmax_same']:.2f}")
-    for i, e in enumerate(host_errs):
-        log(f"  f32 card vs host, position {MODEL_HOST_PROMPT - 1 + i}: max "
-            f"abs err {e['max_abs_err']:.4g}")
-    if not finite:
-        raise fail(f"{MODEL_NAME}: non-finite logits")
-    if report["bf16_excess"] > 0:
-        raise fail(f"{MODEL_NAME}: decode differs from the teacher-forced "
-                   f"forward by {report['bf16_max_abs_err']:.4g} (allowed "
-                   f"{atol:.4g} + {MODEL_BF16_RTOL:.4g}|want|)")
-    if report["f32_excess"] > 0:
-        raise fail(f"{MODEL_NAME} x{MODEL_HOST_LAYERS} layers f32: the card "
-                   f"differs from the host by {report['f32_max_abs_err']:.4g}"
-                   f" ({MODEL_F32_TOL})")
     if any(counts.values()):
         raise fail(f"the zoo launched a kernel: {counts}")
     return counts
-
 
 
 #: the population phase's lane counts: two, and the evaluator's
@@ -2503,7 +2811,8 @@ def main(argv=None) -> int:
                          "stress (the stress tier, the pipeline and the "
                          "elastic restore on ranks sharing the card), "
                          "model (the model zoo's serving path: qwen3-4b "
-                         "at full width, prefill and decode), bench (needs "
+                         "and deepseek-v2-lite-16b at full width and depth, "
+                         "prefill and decode), bench (needs "
                          "kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))

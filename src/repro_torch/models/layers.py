@@ -1,4 +1,4 @@
-"""Model building blocks of the port's zoo (port of the dense parts of
+"""Model building blocks of the port's zoo (port of
 ``repro/models/layers.py``).
 
 Pure-function style: every block has a ``*_meta(cfg)`` builder returning a
@@ -9,10 +9,17 @@ reference does.  Activations carry logical sharding constraints through
 :func:`repro_torch.distributed.shard` (the identity without a mesh).
 
 Ported here: norms, RoPE, activations, the GQA attention layer with its
-prefill and decode paths (linear and ring caches), the dense MLP and the
-embeddings.  MLA, MoE and cross attention are not ported yet (ROADMAP
-queue 1 item 5a'); :func:`repro_torch.models.model_zoo.build_model`
-refuses the configs that need them.
+prefill and decode paths (linear and ring caches), multi-head latent
+attention (DeepSeek V2/V3: materialised K/V in prefill, the absorbed form
+against a latent cache in decode), the dense MLP, the MoE layer (the
+sort-based dispatch, with the one-hot einsum dispatch kept as its
+cross-check) and the embeddings.  Cross attention is not ported yet
+(ROADMAP queue 1 item 5a'); :func:`repro_torch.models.model_zoo.build_model`
+refuses the config that needs it.
+
+No function here reads a value back to the host: decode positions,
+cache slots, routing, capacity drops and expert counts stay on the
+device, so a decode step can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.data.generators import torch_dtype
 from repro_torch.distributed import shard
 from repro_torch.models.flash import flash_attention
@@ -350,6 +357,132 @@ def attn_apply(
     return shard(out, "batch", "seq", "embed"), new_cache
 
 
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek V2/V3)
+# ---------------------------------------------------------------------------
+
+
+def mla_meta(cfg: ModelConfig) -> Dict[str, Any]:
+    m_: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = m_.nope_head_dim + m_.rope_head_dim
+    pd = torch_dtype(cfg.param_dtype)
+    out: Dict[str, Any] = {}
+    if m_.q_lora_rank:
+        out["wdq"] = meta((d, m_.q_lora_rank), ("embed", "q_lora"), dtype=pd, fan_in=d)
+        out["q_norm"] = meta((m_.q_lora_rank,), ("q_lora",), init="ones", dtype=pd)
+        out["wuq"] = meta((m_.q_lora_rank, H, qk), ("q_lora", "heads", "qk_dim"),
+                          dtype=pd, fan_in=m_.q_lora_rank)
+    else:
+        out["wq"] = meta((d, H, qk), ("embed", "heads", "qk_dim"), dtype=pd, fan_in=d)
+    out["wdkv"] = meta((d, m_.kv_lora_rank + m_.rope_head_dim),
+                       ("embed", "kv_lora"), dtype=pd, fan_in=d)
+    out["kv_norm"] = meta((m_.kv_lora_rank,), ("kv_lora",), init="ones", dtype=pd)
+    out["wuk"] = meta((m_.kv_lora_rank, H, m_.nope_head_dim),
+                      ("kv_lora", "heads", "head_dim"), dtype=pd, fan_in=m_.kv_lora_rank)
+    out["wuv"] = meta((m_.kv_lora_rank, H, m_.v_head_dim),
+                      ("kv_lora", "heads", "head_dim"), dtype=pd, fan_in=m_.kv_lora_rank)
+    out["wo"] = meta((H, m_.v_head_dim, d), ("heads", "head_dim", "embed"),
+                     dtype=pd, fan_in=H * m_.v_head_dim)
+    return out
+
+
+def _mla_q(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    m_: MLAConfig = cfg.mla
+    dt = torch_dtype(cfg.dtype)
+    if m_.q_lora_rank:
+        cq = x @ p["wdq"].to(dt)
+        cq = rms_head_norm(p["q_norm"], cq, cfg.norm_eps)
+        q = _project(cq, p["wuq"], dt)
+    else:
+        q = _project(x, p["wq"], dt)
+    q_nope = q[..., : m_.nope_head_dim]
+    q_pe = rope(q[..., m_.nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_pe
+
+
+def _mla_ckv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    m_: MLAConfig = cfg.mla
+    dt = torch_dtype(cfg.dtype)
+    dkv = x @ p["wdkv"].to(dt)
+    ckv = rms_head_norm(p["kv_norm"], dkv[..., : m_.kv_lora_rank], cfg.norm_eps)
+    k_pe = rope(dkv[..., None, m_.kv_lora_rank:], positions, cfg.rope_theta)
+    return ckv, k_pe[:, :, 0]  # (B,S,rank), (B,S,rope_dim)
+
+
+def mla_apply(
+    p,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    index: Optional[torch.Tensor] = None,
+    want_cache: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Train/prefill: materialised per-head K/V through the shared flash
+    attention, v's head dim padded up to the qk dim and cropped after.
+    Decode: absorbed latent attention; the cache stores only ``ckv`` and
+    ``k_pe`` (576 values a token at DeepSeek's widths), and the new
+    token's are written into ``cache``'s tensors in place at ``index``,
+    a slot chosen on the device, as :func:`attn_apply` writes K/V."""
+    m_: MLAConfig = cfg.mla
+    dt = torch_dtype(cfg.dtype)
+    q_nope, q_pe = _mla_q(p, cfg, x, positions)
+    ckv, k_pe = _mla_ckv(p, cfg, x, positions)
+
+    new_cache = None
+    if cache is not None and index is not None:
+        slot = index.reshape(1).to(torch.int64)
+        ckv_c = cache["ckv"].index_copy_(1, slot, ckv.to(dt))
+        kpe_c = cache["k_pe"].index_copy_(1, slot, k_pe.to(dt))
+        ckv_c = shard(ckv_c, "batch", "kv_seq", None)
+        kpe_c = shard(kpe_c, "batch", "kv_seq", None)
+        new_cache = {"ckv": ckv_c, "k_pe": kpe_c}
+        # absorbed: q_lat = q_nope @ W_uk  -> attend in latent space
+        scale = 1.0 / math.sqrt(m_.nope_head_dim + m_.rope_head_dim)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wuk"].to(dt))
+        s = torch.einsum("bshr,btr->bhst", q_lat.to(f32), ckv_c.to(f32))
+        s = s + torch.einsum("bshk,btk->bhst", q_pe.to(f32), kpe_c.to(f32))
+        s = s * scale
+        mask = torch.arange(ckv_c.shape[1], device=x.device) <= index
+        s = s.masked_fill(~mask, -math.inf)
+        pr = torch.softmax(s, dim=-1)
+        ctx_lat = torch.einsum("bhst,btr->bshr", pr, ckv_c.to(f32)).to(dt)
+        ctx = torch.einsum("bshr,rhk->bshk", ctx_lat, p["wuv"].to(dt))
+    else:
+        k_nope = _project(ckv, p["wuk"], dt)
+        v = _project(ckv, p["wuv"], dt)
+        k = torch.cat([k_nope, k_pe[:, :, None].expand(
+            *k_nope.shape[:3], m_.rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        q = shard(q, "batch", "seq", "heads", None)
+        k = shard(k, "batch", "seq", "heads", None)
+        # pad v's head dim up to qk dim for the shared flash attention, then crop
+        qk_dim = m_.nope_head_dim + m_.rope_head_dim
+        vpad = F.pad(v, (0, qk_dim - m_.v_head_dim))
+        ctx = flash_attention(q, k, vpad, causal=True)[..., : m_.v_head_dim]
+        if want_cache:
+            new_cache = {
+                "ckv": shard(ckv.to(dt), "batch", "kv_seq", None),
+                "k_pe": shard(k_pe.to(dt), "batch", "kv_seq", None),
+            }
+    H, K, d = p["wo"].shape
+    out = ctx.flatten(-2) @ p["wo"].to(dt).reshape(H * K, d)
+    return shard(out, "batch", "seq", "embed"), new_cache
+
+
+def mla_cache_meta(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, ParamMeta]:
+    m_ = cfg.mla
+    dt = torch_dtype(cfg.dtype)
+    return {
+        "ckv": meta((batch, seq, m_.kv_lora_rank), ("batch", "kv_seq", None),
+                    init="zeros", dtype=dt),
+        "k_pe": meta((batch, seq, m_.rope_head_dim), ("batch", "kv_seq", None),
+                     init="zeros", dtype=dt),
+    }
+
+
 def attn_cache_meta(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, ParamMeta]:
     hd = cfg.resolved_head_dim()
     dt = torch_dtype(cfg.dtype)
@@ -389,6 +522,239 @@ def mlp_apply(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = shard(h, "batch", "seq", "mlp")
     out = h @ p["wo"].to(dt)
     return shard(out, "batch", "seq", "embed")
+
+
+# ---------------------------------------------------------------------------
+# MoE layer (sort-based dispatch; einsum dispatch kept as the cross-check)
+# ---------------------------------------------------------------------------
+
+
+def moe_meta(cfg: ModelConfig) -> Dict[str, Any]:
+    mo: MoEConfig = cfg.moe
+    d, ff, E = cfg.d_model, mo.d_ff, mo.num_experts
+    pd = torch_dtype(cfg.param_dtype)
+    m: Dict[str, Any] = {
+        "router": meta((d, E), ("embed", "expert"), dtype=f32, fan_in=d),
+        "wi": meta((E, d, ff), ("expert", "embed", "expert_mlp"), dtype=pd, fan_in=d),
+        "wg": meta((E, d, ff), ("expert", "embed", "expert_mlp"), dtype=pd, fan_in=d),
+        "wo": meta((E, ff, d), ("expert", "expert_mlp", "embed"), dtype=pd, fan_in=ff),
+    }
+    if mo.num_shared_experts:
+        m["shared"] = mlp_meta(cfg, width=mo.d_ff * mo.num_shared_experts)
+    return m
+
+
+def _capacity(mo: MoEConfig, tokens: int) -> int:
+    c = int(tokens * mo.experts_per_token * mo.capacity_factor / mo.num_experts)
+    return max(8, -(-c // 8) * 8)  # round up to 8
+
+
+def _dispatch_groups(x: torch.Tensor, probs: torch.Tensor,
+                     top_ids: torch.Tensor, mo: MoEConfig, capacity: int):
+    """Sort-based dispatch of G token groups at once (the reference's
+    ``vmap`` of :func:`moe_dispatch_sort`).
+
+    x: (G, T, d); probs/top_ids: (G, T, k).  Returns (expert_in (G,E,C,d),
+    slot (G,T*k), st (G,T*k), w (G,T*k), counts (G,E)), each group's as
+    the reference computes it alone; indices and counts are int64.  The
+    expert counts are a ``scatter_add_`` into zeros (``bincount`` would
+    read its size back to the host) and the buffer fill an
+    ``index_add_`` at each group's slots offset by ``g * (E*C + 1)``:
+    kept slots are distinct, so only the drop slot ``E*C`` takes more than
+    one (zero) row and the fill is deterministic on the card too."""
+    G, T, d = x.shape
+    E, k = mo.num_experts, mo.experts_per_token
+    C = capacity
+    dev = x.device
+    n = T * k
+    flat_e = top_ids.reshape(G, n).to(torch.int64)
+    flat_w = probs.reshape(G, n)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    # assignment j is token j // k's
+    se, sw, st = flat_e.gather(1, order), flat_w.gather(1, order), order // k
+    counts = torch.zeros((G, E), dtype=torch.int64, device=dev).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos = torch.arange(n, device=dev) - starts.gather(1, se)
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, E * C)
+    g_off = torch.arange(G, device=dev)[:, None]
+    xs = x.reshape(G * T, d).index_select(0, (st + g_off * T).reshape(-1))
+    xs = xs * keep.reshape(-1, 1).to(x.dtype)
+    buf = torch.zeros((G * (E * C + 1), d), dtype=x.dtype, device=dev)
+    buf.index_add_(0, (slot + g_off * (E * C + 1)).reshape(-1), xs)
+    expert_in = buf.view(G, E * C + 1, d)[:, : E * C].reshape(G, E, C, d)
+    w = sw * keep.to(sw.dtype)
+    return expert_in, slot, st, w, counts
+
+
+def _combine_groups(expert_out: torch.Tensor, slot: torch.Tensor,
+                    st: torch.Tensor, w: torch.Tensor,
+                    num_tokens: int) -> torch.Tensor:
+    """Inverse of :func:`_dispatch_groups`: (G,E,C,d) expert outputs ->
+    (G,T,d) token outputs.
+
+    The reference scatter-adds each assignment's weighted row into its
+    token (``.at[st].add``).  On the card that is an ``index_add_`` with
+    atomics, whose bf16 sums change order from run to run.  Here each
+    token's k rows are gathered in the order the scatter visits them (a
+    stable argsort of ``st``: the token's assignments by ascending
+    expert) and added one after another in the output dtype: the same
+    function, deterministic on either device."""
+    G, E, C, d = expert_out.shape
+    n = st.shape[1]
+    k = n // num_tokens
+    dev = expert_out.device
+    pad = torch.cat([expert_out.reshape(G, E * C, d),
+                     torch.zeros((G, 1, d), dtype=expert_out.dtype,
+                                 device=dev)], dim=1)
+    perm = torch.argsort(st, dim=-1, stable=True)
+    rows = slot.gather(1, perm) + torch.arange(G, device=dev)[:, None] * (
+        E * C + 1)
+    per_assign = pad.reshape(G * (E * C + 1), d).index_select(
+        0, rows.reshape(-1)).view(G, num_tokens, k, d)
+    per_assign = per_assign * w.gather(1, perm).to(expert_out.dtype).view(
+        G, num_tokens, k, 1)
+    out = per_assign[:, :, 0]
+    for i in range(1, k):
+        out = out + per_assign[:, :, i]
+    return out
+
+
+def moe_dispatch_sort(x_g, probs, top_ids, mo: MoEConfig, capacity: int):
+    """Sort-based dispatch for one token group.
+
+    x_g: (T, d); probs/top_ids: (T, k).  Returns
+    (expert_in (E,C,d), slot (T*k,), st (T*k,), w (T*k,), counts (E,)) —
+    slot/st/w feed :func:`moe_combine_sort`.
+    """
+    out = _dispatch_groups(x_g[None], probs[None], top_ids[None], mo, capacity)
+    return tuple(t[0] for t in out)
+
+
+def moe_combine_sort(expert_out, slot, st, w, num_tokens: int):
+    """Inverse of dispatch: (E,C,d) expert outputs -> (T,d) token outputs."""
+    return _combine_groups(expert_out[None], slot[None], st[None], w[None],
+                           num_tokens)[0]
+
+
+def _experts(cfg: ModelConfig, expert_in: torch.Tensor, wi, wg, wo,
+             axes: Tuple) -> torch.Tensor:
+    """The stacked gated experts on (..., E, C, d) inputs, weights in the
+    compute dtype: ``ecd,edf->ecf`` twice, then ``ecf,efd->ecd``."""
+    expert_in = shard(expert_in, *axes, "embed")
+    h = expert_in @ wi
+    g = expert_in @ wg
+    h = shard(activation(cfg, g) * h, *axes, "expert_mlp")
+    return shard(h @ wo, *axes, "embed")
+
+
+def moe_apply(p, cfg: ModelConfig,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss).  Groups tokens, dispatches with the
+    sort-based scheme, runs the stacked experts.  ``scan_groups`` runs the
+    groups one after another (one group's dispatch buffers live at a
+    time), else all at once along a leading group dim; ``ep_major`` only
+    names other sharding axes, the identity without a mesh.  A config
+    whose ``B*S`` tokens exceed one group must fill whole groups, as the
+    reference asserts."""
+    mo: MoEConfig = cfg.moe
+    dt = torch_dtype(cfg.dtype)
+    B, S, d = x.shape
+    T_all = B * S
+    Tg = min(mo.group_size, T_all)
+    G = T_all // Tg
+    if G * Tg != T_all:
+        raise ValueError(f"tokens {T_all} not divisible by group {Tg}")
+    xg = shard(x.reshape(G, Tg, d), "batch", None, "embed")
+
+    logits = xg.to(f32) @ p["router"].to(f32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_ids = torch.topk(probs, mo.experts_per_token, dim=-1)
+    top_p = top_p / torch.clamp(top_p.sum(dim=-1, keepdim=True), min=1e-9)
+
+    C = _capacity(mo, Tg)
+    wi, wg, wo = (p[n].to(dt) for n in ("wi", "wg", "wo"))
+
+    if mo.scan_groups and G > 1:
+        # sequential groups: one group's (E, C, d) buffers live at a time
+        xg_rep = shard(xg, None, None, "embed")
+        outs, counts = [], []
+        for g in range(G):
+            expert_in, slot, st, w, cnt = _dispatch_groups(
+                xg_rep[g:g + 1], top_p[g:g + 1].to(dt), top_ids[g:g + 1],
+                mo, C)
+            y = _experts(cfg, expert_in, wi, wg, wo, (None, "expert", None))
+            outs.append(_combine_groups(y, slot, st, w, Tg))
+            counts.append(cnt)
+        out, counts = torch.cat(outs), torch.cat(counts)
+    else:
+        expert_in, slot, st, w, counts = _dispatch_groups(
+            xg, top_p.to(dt), top_ids, mo, C)
+        # expert-major: only the dispatched tokens reshard, never weights
+        axes = ((None if mo.ep_major else "batch"), "expert", None)
+        y = _experts(cfg, expert_in, wi, wg, wo, axes)
+        out = _combine_groups(y, slot, st, w, Tg)
+    out = out.reshape(B, S, d)
+
+    if mo.num_shared_experts:
+        out = out + mlp_apply(p["shared"], cfg, x)
+
+    # load-balance aux loss (Switch/GShard style)
+    frac_tokens = counts.to(f32).sum(0) / (G * Tg * mo.experts_per_token)
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = mo.num_experts * torch.sum(frac_tokens * frac_probs) * mo.aux_loss_weight
+    return shard(out, "batch", "seq", "embed"), aux
+
+
+def moe_apply_einsum(p, cfg: ModelConfig,
+                     x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style one-hot einsum dispatch (reference / small-E path):
+    one group of all ``B*S`` tokens, priority by choice rank, then token."""
+    mo: MoEConfig = cfg.moe
+    dt = torch_dtype(cfg.dtype)
+    B, S, d = x.shape
+    T = B * S
+    dev = x.device
+    xf = x.reshape(T, d)
+    logits = xf.to(f32) @ p["router"].to(f32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_ids = torch.topk(probs, mo.experts_per_token, dim=-1)
+    top_p = top_p / torch.clamp(top_p.sum(dim=-1, keepdim=True), min=1e-9)
+    C = _capacity(mo, T)
+    E = mo.num_experts
+    experts = torch.arange(E, device=dev)
+
+    # sequential-priority positions over the k choices
+    counts = torch.zeros(E, dtype=torch.int64, device=dev)
+    ohs, poss, keeps = [], [], []
+    for i in range(mo.experts_per_token):
+        oh = (top_ids[:, i, None] == experts).to(torch.int64)      # (T, E)
+        pos = counts[None, :] + torch.cumsum(oh, dim=0) - oh        # (T, E)
+        counts = counts + oh.sum(0)
+        pos_t = (pos * oh).sum(-1)                                  # (T,)
+        ohs.append(oh)
+        poss.append(pos_t)
+        keeps.append((pos_t < C) & (oh.sum(-1) > 0))
+    disp = torch.zeros((T, E, C), dtype=dt, device=dev)
+    comb = torch.zeros((T, E, C), dtype=f32, device=dev)
+    t_idx = torch.arange(T, device=dev)
+    for i in range(mo.experts_per_token):
+        at = (t_idx, top_ids[:, i], torch.clamp(poss[i], 0, C - 1))
+        disp.index_put_(at, keeps[i].to(dt), accumulate=True)
+        comb.index_put_(at, top_p[:, i] * keeps[i].to(f32), accumulate=True)
+    expert_in = torch.einsum("tec,td->ecd", disp, xf)
+    y = _experts(cfg, expert_in, p["wi"].to(dt), p["wg"].to(dt),
+                 p["wo"].to(dt), ("expert", None))
+    out = torch.einsum("tec,ecd->td", comb.to(dt), y).reshape(B, S, d)
+    if mo.num_shared_experts:
+        out = out + mlp_apply(p["shared"], cfg, x)
+    frac_tokens = torch.zeros(E, dtype=f32, device=dev)
+    for oh in ohs:
+        frac_tokens = frac_tokens + oh.to(f32).sum(0)
+    frac_tokens = frac_tokens / (T * mo.experts_per_token)
+    aux = E * torch.sum(frac_tokens * probs.mean(0)) * mo.aux_loss_weight
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

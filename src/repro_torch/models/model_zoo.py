@@ -6,7 +6,8 @@ A Model exposes, as the reference's does:
 * ``param_meta()`` / ``cache_meta(batch, seq)`` — ParamMeta trees,
 * ``abstract()`` — meta-device tensors (no memory),
 * ``init(generator, device=)`` — materialised params,
-* ``forward(params, batch)`` — teacher-forced logits,
+* ``forward(params, batch)`` — teacher-forced logits and the MoE layers'
+  summed auxiliary loss (0 without MoE),
 * ``prefill(params, batch)`` — (last-token logits, caches),
 * ``decode(params, caches, batch)`` — (logits, caches); batch carries
   ``tokens`` (B, 1) and ``index`` (a 0-d integer tensor on the model's
@@ -15,8 +16,9 @@ A Model exposes, as the reference's does:
   them); it reads nothing back to the host, so a step can be captured as
   a CUDA graph.
 
-:func:`build_model` builds the dense and VLM decoders.  A config that
-needs a mixer or block this port does not have yet (MoE, MLA, SSM, RG-LRU,
+:func:`build_model` builds the dense, VLM and MoE decoders (GQA or
+multi-head latent attention; dense or MoE feed-forward layers).  A config
+that needs a block this port does not have yet (SSM, RG-LRU,
 encoder-decoder) raises ``NotImplementedError`` naming the ROADMAP item;
 nothing falls back to another model.  ``cross_entropy``, ``loss`` and the
 encoder-decoder model come with training.
@@ -41,10 +43,6 @@ def unported(cfg: ModelConfig) -> Optional[str]:
     """What of ``cfg`` the port cannot build yet (``None``: all of it)."""
     if cfg.is_encoder_decoder:
         return "the encoder-decoder model (models/whisper.py, cross attention)"
-    if cfg.moe is not None:
-        return "the MoE layer (layers.py moe_apply, sort dispatch)"
-    if cfg.mla is not None:
-        return "multi-head latent attention (layers.py mla_apply)"
     if cfg.family == "ssm" or cfg.ssm is not None:
         return "the Mamba-2 SSD block (models/mamba2.py)"
     if cfg.rglru is not None or "recurrent" in cfg.layer_pattern:
@@ -53,7 +51,7 @@ def unported(cfg: ModelConfig) -> Optional[str]:
 
 
 class Model:
-    """Decoder-only LM (the dense and VLM families of the zoo)."""
+    """Decoder-only LM (the dense, VLM and MoE families of the zoo)."""
 
     def __init__(self, cfg: ModelConfig):
         missing = unported(cfg)
@@ -76,6 +74,7 @@ class Model:
         return trunk.trunk_cache_meta(self.cfg, batch, seq)
 
     def abstract(self):
+        """Meta-device tensors of every param: no storage at any size."""
         return abstract_params(self.param_meta())
 
     def init(self, generator: torch.Generator, *, device: DeviceLike = None):
@@ -100,7 +99,8 @@ class Model:
 
     # -- forward ----------------------------------------------------------------
     def forward(self, params, batch):
-        """(logits (B, S, V) f32 over the text positions, aux loss)."""
+        """(logits (B, S, V) f32 over the text positions, the MoE layers'
+        summed aux loss)."""
         cfg = self.cfg
         x, positions = self._embed_inputs(params, batch)
         x, _, aux = trunk.trunk_apply(params["trunk"], cfg, x,

@@ -1,5 +1,6 @@
 """Generic decoder trunk: the pattern-aware stack of layers (port of
-``repro/models/trunk.py`` for the ``attn`` mixer).
+``repro/models/trunk.py`` for the ``attn`` and ``mla`` mixers, with dense
+or MoE feed-forward layers).
 
 A config's layers are grouped into *segments*:
 
@@ -13,8 +14,10 @@ The parameter and cache trees are the reference's key for key and shape
 for shape.  Where the reference runs a scanned segment with ``lax.scan``,
 the port runs a Python loop over views of the ``layers`` dim: prefill
 stacks each layer's new cache along that dim, and decode writes each
-layer's K/V into its view of the stacked cache in place.  ``remat`` comes
-with training.
+layer's K/V into its view of the stacked cache in place.  The MoE layers'
+auxiliary losses are summed once, at the end (a dense block adds no
+launch for a zero loss, as XLA's fused zeros cost the reference none).
+``remat`` comes with training.
 """
 from __future__ import annotations
 
@@ -73,12 +76,14 @@ def _block_kind(cfg: ModelConfig, kind: str) -> str:
     return "mla" if cfg.mla is not None else "attn"
 
 
-def _require_attn(cfg: ModelConfig, kind: str) -> None:
+def _require_ported(cfg: ModelConfig, kind: str) -> str:
+    """The block's mixer; raises for one the port does not have yet."""
     mixer = _block_kind(cfg, kind)
-    if mixer != "attn":
+    if mixer in ("ssm", "recurrent"):
         raise NotImplementedError(
             f"{cfg.name}: the {mixer!r} mixer is not ported yet (ROADMAP "
             f"queue 1 item 5a')")
+    return mixer
 
 
 # ---------------------------------------------------------------------------
@@ -87,10 +92,17 @@ def _require_attn(cfg: ModelConfig, kind: str) -> None:
 
 
 def block_meta(cfg: ModelConfig, kind: str, layer_idx: int) -> Dict[str, Any]:
-    _require_attn(cfg, kind)
-    m: Dict[str, Any] = {"norm1": L.norm_meta(cfg), "mixer": L.attn_meta(cfg),
-                         "norm2": L.norm_meta(cfg)}
-    m["ffn"] = L.mlp_meta(cfg)
+    mixer = _require_ported(cfg, kind)
+    m: Dict[str, Any] = {"norm1": L.norm_meta(cfg)}
+    m["mixer"] = L.mla_meta(cfg) if mixer == "mla" else L.attn_meta(cfg)
+    m["norm2"] = L.norm_meta(cfg)
+    if _is_moe_layer(cfg, layer_idx):
+        m["ffn"] = L.moe_meta(cfg)
+    else:
+        width = None
+        if cfg.moe is not None:  # the leading dense layers of an MoE config
+            width = cfg.moe.dense_d_ff or cfg.d_ff
+        m["ffn"] = L.mlp_meta(cfg, width=width)
     if cfg.post_attn_norm:
         m["post_norm1"] = L.norm_meta(cfg)
         m["post_norm2"] = L.norm_meta(cfg)
@@ -99,7 +111,8 @@ def block_meta(cfg: ModelConfig, kind: str, layer_idx: int) -> Dict[str, Any]:
 
 def block_cache_meta(cfg: ModelConfig, kind: str, batch: int,
                      seq: int) -> Optional[Dict[str, Any]]:
-    _require_attn(cfg, kind)
+    if _require_ported(cfg, kind) == "mla":
+        return L.mla_cache_meta(cfg, batch, seq)
     cache_len = seq
     if kind == "local" and cfg.sliding_window and cfg.sliding_window < seq:
         cache_len = cfg.sliding_window  # ring buffer for local layers
@@ -113,21 +126,34 @@ def block_apply(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     index: Optional[torch.Tensor] = None,
     want_cache: bool = False,
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    _require_attn(cfg, kind)
+    moe_layer: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
+    """(x, the block's new cache, its auxiliary loss: the MoE layer's, or
+    ``None``)."""
+    mixer = _require_ported(cfg, kind)
+    aux = None
+
     h = L.norm_apply(p["norm1"], cfg, x)
-    a, new_cache = L.attn_apply(
-        p["mixer"], cfg, h, layer_kind=kind, positions=positions,
-        causal=causal, cache=cache, index=index, want_cache=want_cache)
+    if mixer == "mla":
+        a, new_cache = L.mla_apply(p["mixer"], cfg, h, positions=positions,
+                                   cache=cache, index=index,
+                                   want_cache=want_cache)
+    else:
+        a, new_cache = L.attn_apply(
+            p["mixer"], cfg, h, layer_kind=kind, positions=positions,
+            causal=causal, cache=cache, index=index, want_cache=want_cache)
     if cfg.post_attn_norm:
         a = L.norm_apply(p["post_norm1"], cfg, a)
     x = x + a
 
     h = L.norm_apply(p["norm2"], cfg, x)
-    f = L.mlp_apply(p["ffn"], cfg, h)
+    if moe_layer:
+        f, aux = L.moe_apply(p["ffn"], cfg, h)
+    else:
+        f = L.mlp_apply(p["ffn"], cfg, h)
     if cfg.post_attn_norm:
         f = L.norm_apply(p["post_norm2"], cfg, f)
-    return x + f, new_cache
+    return x + f, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +184,10 @@ def trunk_cache_meta(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
     return out
 
 
+def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
+    return cfg.moe is not None and layer_idx >= cfg.moe.first_dense_layers
+
+
 def trunk_apply(
     params, cfg: ModelConfig, x: torch.Tensor, *,
     positions: torch.Tensor,
@@ -168,15 +198,17 @@ def trunk_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """Run all segments.  Returns (x, new_caches|None, aux_loss).  Decode
     (``caches`` and ``index``) writes into ``caches``' tensors and returns
-    them; no mixer of the port has an auxiliary loss yet, so it is 0."""
+    them."""
     segs = build_segments(cfg)
     keep_cache = want_cache or index is not None
     new_caches: Dict[str, Any] = {}
+    auxs: List[torch.Tensor] = []  # the MoE layers' losses, layer by layer
 
-    def run(p_, x_, kind, c_):
+    def run(p_, x_, kind, c_, li):
         return block_apply(p_, cfg, x_, kind, positions=positions,
                            causal=causal, cache=c_, index=index,
-                           want_cache=want_cache)
+                           want_cache=want_cache,
+                           moe_layer=_is_moe_layer(cfg, li))
 
     for si, seg in enumerate(segs):
         seg_p = params[f"seg{si}"]
@@ -186,7 +218,9 @@ def trunk_apply(
             entry_caches = {}
             for j, kind in enumerate(seg.kinds):
                 cj = seg_c[f"p{j}"] if seg_c is not None else None
-                x, entry_caches[f"p{j}"] = run(seg_p[f"p{j}"], x, kind, cj)
+                x, entry_caches[f"p{j}"], aux = run(
+                    seg_p[f"p{j}"], x, kind, cj, seg.layer_start + j)
+                auxs += [aux] if aux is not None else []
             if keep_cache:
                 new_caches[f"seg{si}"] = entry_caches
             continue
@@ -199,7 +233,9 @@ def trunk_apply(
                 p_ij = tree_map(lambda t: t[i], seg_p[f"p{j}"])
                 c_ij = (tree_map(lambda t: t[i], seg_c[f"p{j}"])
                         if seg_c is not None else None)
-                x, ncs[f"p{j}"] = run(p_ij, x, kind, c_ij)
+                x, ncs[f"p{j}"], aux = run(p_ij, x, kind, c_ij,
+                                           seg.layer_start + j)
+                auxs += [aux] if aux is not None else []
             per_layer.append(ncs)
         if seg_c is not None and index is not None:
             new_caches[f"seg{si}"] = seg_c  # written in place, slice by slice
@@ -207,5 +243,6 @@ def trunk_apply(
             new_caches[f"seg{si}"] = tree_map(
                 lambda *ts: torch.stack(ts), *per_layer)
 
-    aux = torch.zeros((), dtype=f32, device=x.device)
-    return x, (new_caches if keep_cache else None), aux
+    aux_total = (torch.stack(auxs).sum() if auxs
+                 else torch.zeros((), dtype=f32, device=x.device))
+    return x, (new_caches if keep_cache else None), aux_total
