@@ -172,9 +172,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    differs from the forward's, and the assignments the shipped
    capacity's forward over the same tokens drops and its gap to the
    no-drop one (neither held); (a'') the same oracle in f32 on one row
-   of the prompt (``MOE_F32_TOL``); (b') as (b) at its width (one dense,
-   one MoE layer).  Fails if any of the six kernels launched: the zoo keeps its
-   own attention, norms and MoE dispatch, as the reference's does;
+   of the prompt (``F32_ORACLE_TOL``); (b') as (b) at its width (one dense,
+   one MoE layer).  (c) mamba2-780m (48 SSD layers, 0.78 B f32 params),
+   a prompt of 4 x 1000 (off the chunk of 256, so the padded chunk
+   runs); (d) recurrentgemma-9b (12 (RG-LRU, RG-LRU, local) superblocks
+   and an (RG-LRU, RG-LRU) tail, 9.40 B f32 params = 37.6 GB), a prompt
+   of 2 x 2304 (the local layers' caches rings of 2048, decode
+   wrapping); (e) whisper-small (12 + 12 layers, 0.34 B params), 4 x
+   1500 encoder frames and a prompt of 4 x 32 tokens; each with 32
+   greedy steps as (a), held to its forward (mamba2-780m at 2.0 x the
+   std, measured: ``FAMILY_RUNS``), its f32 oracle as (a'') (mamba2-780m
+   at atol 6e-3, measured) and its host check as (b) (recurrentgemma-9b's
+   at three layers, one superblock).  Fails if any of the six kernels launched: the zoo keeps
+   its own attention, norms, MoE dispatch and scans, as the reference's
+   does;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -1999,13 +2010,46 @@ MOE_BATCH, MOE_PROMPT, MOE_STEPS = 4, 992, 32
 #: faults, and the f32 oracle below holds the same path closely.
 MOE_BF16_ATOL_STD = 2.0
 #: (a'') the oracle again in f32 at full width and depth (params are f32
-#: already, so nothing is cast), ``MOE_F32_BATCH`` rows of the same
-#: prompt at the no-drop capacity, each step within ``MOE_F32_TOL`` of the
-#: f32 forward at its position: f32 products of other shapes than the
+#: already, so nothing is cast), ``F32_ORACLE_BATCH`` rows of the same
+#: prompt at the no-drop capacity, each step within ``F32_ORACLE_TOL`` of
+#: the f32 forward at its position: f32 products of other shapes than the
 #: forward's, summed in another order (measured on the H100: 2.1e-5 at
-#: most, argmax agreeing at every position)
-MOE_F32_BATCH = 1
-MOE_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+#: most, argmax agreeing at every position); (c)-(e) run it too
+F32_ORACLE_BATCH = 1
+F32_ORACLE_TOL = dict(rtol=1e-4, atol=1e-4)
+#: (c)-(e): the zoo's last three families at full width and depth, params
+#: from ``MODEL_SEED``, bf16 activations, each held to its teacher-forced
+#: forward at ``MODEL_BF16_RTOL`` and its row's ``atol_std`` x the forward
+#: logits' std, to the f32 forward as (a''), and as (b) in f32 against
+#: the host.
+#: (c) mamba2-780m: 48 SSD layers, d_model 1536, 48 heads of 64, state
+#: 128, chunks of 256, vocab 50,280; 780,148,992 f32 params (3.1 GB); a
+#: prompt of 1000, not a multiple of the chunk, so the padded chunk runs.
+#: (d) recurrentgemma-9b: 38 layers, 12 (RG-LRU, RG-LRU, local attention)
+#: superblocks and an unscanned (RG-LRU, RG-LRU) tail; d_model and LRU
+#: width 4096, 16 query heads of 256 over 1 KV head, window 2048, vocab
+#: 256,000; 9,396,408,320 f32 params (37.6 GB); a prompt of 2304, past
+#: the window, so the local layers' caches are rings of 2048 and decode
+#: wraps.  (e) whisper-small: 12 encoder and 12 decoder layers, d_model
+#: 768, 12 heads of 64, vocab 51,865; 338,771,712 f32 params; 1500 frames
+#: (30 s of audio after the stubbed stem's 2x stride) and a prompt of 32.
+#: mamba2-780m's decode drifts from its forward over the steps, in bf16
+#: and, less, in f32: each step's roundings enter the f32 SSD state,
+#: which carries them into the next steps, at each of 48 layers, and the
+#: forward's chunked scan takes differences of within-chunk cumulative
+#: sums of ``dt * A`` over chunks of 256, which f32 holds to about 1e-7
+#: of their size.  Measured on the H100: bf16 0.11 x the logits' std at
+#: the first step, up to 1.49 x after 16 steps; f32 2.8e-4 at the first
+#: step, up to 2.9e-3; the argmax agreeing at every f32 position.  So its
+#: bf16 run is held at 2.0 x the std and its f32 oracle at atol 6e-3.
+#: recurrentgemma-9b and whisper-small measured 0.19 x and 0.04 x the std
+#: in bf16, 7.4e-5 and 3.3e-6 in f32, and keep the defaults.
+#: Rows: (name, batch, prompt, steps, frames, atol_std, f32 oracle's tol)
+FAMILY_RUNS = (
+    ("mamba2-780m", 4, 1000, 32, 0, 2.0, dict(rtol=1e-4, atol=6e-3)),
+    ("recurrentgemma-9b", 2, 2304, 32, 0, MODEL_BF16_ATOL_STD,
+     F32_ORACLE_TOL),
+    ("whisper-small", 4, 32, 32, 1500, MODEL_BF16_ATOL_STD, F32_ORACLE_TOL))
 
 
 def profiled(torch, fn):
@@ -2027,8 +2071,9 @@ def profiled(torch, fn):
 
 
 def serve_greedy(torch, model, params, prompt, steps: int, *,
-                 tokens=None, profile: bool = False) -> dict:
-    """Prefill ``prompt`` (B, S), ``pad_caches`` to S + ``steps``, then
+                 tokens=None, extra=None, profile: bool = False) -> dict:
+    """Prefill ``prompt`` (B, S) (with ``extra`` inputs beside it in the
+    batch: Whisper's ``frames``), ``pad_caches`` to S + ``steps``, then
     ``steps`` decode steps fed greedily (or with ``tokens``, (B, steps)),
     each timed on the host clock to the device's end.  Returns the
     prefill's last logits (B, V) and seconds, each step's logits (B, V)
@@ -2053,7 +2098,8 @@ def serve_greedy(torch, model, params, prompt, steps: int, *,
     synchronize(dev)
     t0 = time.perf_counter()
     logits, caches = call("prefill_profile", prefill, params,
-                          {"tokens": prompt}, trace=profile)
+                          {"tokens": prompt, **(extra or {})},
+                          trace=profile)
     synchronize(dev)
     out["prefill"], out["prefill_s"] = logits[:, 0], time.perf_counter() - t0
     caches = pad_caches(model, caches, B, S + steps)
@@ -2074,58 +2120,127 @@ def serve_greedy(torch, model, params, prompt, steps: int, *,
     return out
 
 
-def serve_bounds(cfg, batch: int, prompt: int) -> dict:
+def _pairs(S: int, window=None) -> int:
+    """Query-key pairs a causal mask keeps over S positions (each
+    position its last ``window`` ones, where given)."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def serve_bounds(cfg, batch: int, prompt: int, frames: int = 0) -> dict:
     """The least ms the card could take for a prefill of (batch, prompt)
-    and for one decode step after it, each (ms, bound_by): every input
-    read once, every output written once.  A decode step reads every f32
-    parameter that is not a routed expert, the routed experts its
-    ``batch * k`` assignments can reach (``min(E, batch * k) / E`` of
-    them: the most one step's tokens can pick), and the cache (K and V of
-    each KV head, or MLA's ``kv_lora + rope`` latent, 2 bytes a value),
-    and writes one position of it; its operations are 2 an active
-    parameter a token (routed experts: k of E).  A prefill reads every
-    parameter and writes the cache; its operations are 2 an active trunk
-    parameter a token, causal attention's QK (qk head dim) and PV (v head
-    dim) over the pairs the mask keeps, and the last position's logits,
-    at the bf16 rate."""
+    (and ``frames`` encoder frames) and for one decode step after it,
+    each (ms, bound_by): every input read once, every output written
+    once.  Parameters are f32 and read whole, except a positional table
+    (a row a position), and in decode the encoder (a step does not run
+    it) and the routed experts a step's ``batch * k`` assignments cannot
+    reach (``min(E, batch * k) / E`` of them are read).  Caches are read
+    once and written once: K and V of each KV head (or MLA's ``kv_lora +
+    rope`` latent), 2 bytes a value, over the positions a layer keeps (a
+    local layer its window), and Whisper's cross K/V over the frames; a
+    Mamba-2 layer's f32 state (H, P, N) and an RG-LRU layer's f32 ``h``,
+    each with its bf16 conv tail, are read and written whole by a decode
+    step and written by a prefill.  Operations at the bf16 rate: 2 an
+    active parameter a token (routed experts: k of E), the last
+    position's logits, attention's QK and PV over the pairs its mask keeps
+    (causal, windowed, or every frame); at the f32 rate, the f32 products:
+    RG-LRU's gates (``wa`` and ``wi``, 2 w^2 each a token) and SSD's
+    (the causal pairs within each chunk times N + P, and 4 H P N a
+    token)."""
     from repro_torch.models import build_model, count_params
+    from repro_torch.models.trunk import _block_kind, build_segments
 
     meta = build_model(cfg).param_meta()
-    n_all, n_trunk = count_params(meta), count_params(meta["trunk"])
-    L = cfg.num_layers
-    if cfg.mla is not None:
-        m_ = cfg.mla
-        kv_token = L * batch * (m_.kv_lora_rank + m_.rope_head_dim) * 2
-        qk, vd = m_.nope_head_dim + m_.rope_head_dim, m_.v_head_dim
+    n_all = count_params(meta)
+    B, S, d = batch, prompt, cfg.d_model
+    hd, H = cfg.resolved_head_dim(), cfg.num_heads
+    pos = count_params(meta["embed"].get("pos", {}))  # positional tables
+    if cfg.is_encoder_decoder:
+        pos += count_params(meta["enc_pos"])
+        kinds = ["global"] * cfg.num_layers
+        n_run = count_params(meta["decoder"])
+        n_enc = count_params(meta["encoder"]) + count_params(meta["enc_norm"])
     else:
-        qk = vd = cfg.resolved_head_dim()
-        kv_token = 2 * L * batch * cfg.num_kv_heads * qk * 2  # bf16
-    routed = idle = 0  # routed expert params; those a token leaves idle
-    reach = 1.0
+        kinds = [k for seg in build_segments(cfg) for _ in range(seg.count)
+                 for k in seg.kinds]
+        n_run, n_enc = count_params(meta["trunk"]), 0
+    routed = idle = gates = 0  # routed expert params; those a token
+    reach = 1.0                # leaves idle; RG-LRU's f32 gate params
     if cfg.moe is not None:
         mo = cfg.moe
-        per_expert = 3 * cfg.d_model * mo.d_ff
-        n_moe = L - min(mo.first_dense_layers, L)
+        per_expert = 3 * d * mo.d_ff
+        n_moe = len(kinds) - min(mo.first_dense_layers, len(kinds))
         routed = n_moe * mo.num_experts * per_expert
         idle = n_moe * (mo.num_experts - mo.experts_per_token) * per_expert
-        reach = min(mo.num_experts,
-                    batch * mo.experts_per_token) / mo.num_experts
-    active = n_trunk - idle
-    head = 2.0 * batch * cfg.vocab_size * cfg.d_model
-    peak = PEAK_FLOPS["bfloat16"]
-    decode_bytes = (4 * (n_all - routed) + 4 * routed * reach
-                    + kv_token * (prompt + 1))
-    decode_ops = 2.0 * batch * active + head
-    pairs = batch * prompt * (prompt + 1) / 2
-    prefill_ops = (2.0 * batch * prompt * active + head
-                   + 2.0 * pairs * cfg.num_heads * (qk + vd) * L)
-    prefill_bytes = 4 * n_all + kv_token * prompt
-    return {"decode": bound_of(decode_ops / peak,
+        reach = min(mo.num_experts, B * mo.experts_per_token) / mo.num_experts
+    cache = {"prefill": 0, "decode": 0}    # bytes of caches and states
+    attn = {"prefill": 0.0, "decode": 0.0}  # bf16-rate attention ops
+    f32_ops = {"prefill": 0.0, "decode": 0.0}
+    for kind in kinds:
+        mixer = _block_kind(cfg, kind)
+        if mixer == "ssm":
+            s_ = cfg.ssm
+            d_in = s_.expand * d
+            h_ = d_in // s_.head_dim
+            conv_dim = d_in + 2 * s_.n_groups * s_.state_dim
+            state = (B * h_ * s_.head_dim * s_.state_dim * 4
+                     + B * (s_.conv_width - 1) * conv_dim * 2)
+            cache["prefill"] += state
+            cache["decode"] += 2 * state
+            L_ = min(s_.chunk_size, S)
+            f32_ops["prefill"] += (
+                2.0 * B * h_ * (s_.state_dim + s_.head_dim)
+                * ((S // L_) * _pairs(L_) + _pairs(S % L_))
+                + 4.0 * B * S * h_ * s_.head_dim * s_.state_dim)
+            f32_ops["decode"] += 4.0 * B * h_ * s_.head_dim * s_.state_dim
+            continue
+        if mixer == "recurrent":
+            w = cfg.rglru.lru_width or d
+            state = B * w * 4 + B * (cfg.rglru.conv_width - 1) * w * 2
+            cache["prefill"] += state
+            cache["decode"] += 2 * state
+            gates += 2 * w * w
+            f32_ops["prefill"] += 4.0 * B * S * w * w
+            f32_ops["decode"] += 4.0 * B * w * w
+            continue
+        if mixer == "mla":
+            m_ = cfg.mla
+            kv = (m_.kv_lora_rank + m_.rope_head_dim) * 2
+            qk, vd = m_.nope_head_dim + m_.rope_head_dim, m_.v_head_dim
+        else:
+            kv, qk, vd = 2 * cfg.num_kv_heads * hd * 2, hd, hd
+        window = cfg.sliding_window if kind == "local" else None
+        kept = min(S + 1, window) if window else S + 1
+        cache["prefill"] += B * min(S, window or S) * kv
+        cache["decode"] += B * kept * kv
+        attn["prefill"] += 2.0 * B * _pairs(S, window) * H * (qk + vd)
+        attn["decode"] += 2.0 * B * kept * H * (qk + vd)
+        if cfg.is_encoder_decoder:  # cross attention over the frames
+            cross = 2 * cfg.num_kv_heads * hd * 2
+            cache["prefill"] += B * frames * cross
+            cache["decode"] += B * frames * cross
+            attn["prefill"] += 2.0 * B * S * frames * H * 2 * hd
+            attn["decode"] += 2.0 * B * frames * H * 2 * hd
+    if cfg.is_encoder_decoder:  # the encoder: every frame sees every one
+        attn["prefill"] += (cfg.encoder_layers * 2.0 * B * frames * frames
+                            * H * 2 * hd)
+    active = n_run - idle - gates
+    head = 2.0 * B * cfg.vocab_size * d
+    bf, f32 = PEAK_FLOPS["bfloat16"], PEAK_FLOPS["float32"]
+    decode_bytes = (4 * (n_all - pos - n_enc - routed) + 4 * routed * reach
+                    + cache["decode"])
+    decode_ops = 2.0 * B * active + head + attn["decode"]
+    prefill_ops = (2.0 * B * S * active + 2.0 * B * frames * n_enc + head
+                   + attn["prefill"])
+    prefill_bytes = 4 * (n_all - pos + (S + frames) * d) + cache["prefill"]
+    return {"decode": bound_of(decode_ops / bf + f32_ops["decode"] / f32,
                                decode_bytes / HBM_BYTES_PER_S)[:2],
             "decode_bytes": decode_bytes,
-            "prefill": bound_of(prefill_ops / peak,
+            "decode_cache_bytes": cache["decode"],
+            "prefill": bound_of(prefill_ops / bf + f32_ops["prefill"] / f32,
                                 prefill_bytes / HBM_BYTES_PER_S)[:2],
-            "prefill_ops": prefill_ops}
+            "prefill_ops": prefill_ops + f32_ops["prefill"]}
 
 
 def logit_errors(got, want, rtol: float, atol: float) -> dict:
@@ -2209,22 +2324,23 @@ def routing_flips(torch, served, forward, steps: int) -> dict:
 
 def hold_to_forward(torch, model, params, prompt, run, rtol: float, *,
                     atol: float = None, atol_std: float = None,
-                    routes=None) -> tuple:
+                    routes=None, extra=None) -> tuple:
     """A served ``run`` of ``prompt`` held to ``model``'s teacher-forced
     ``forward`` over the prompt and the run's fed tokens: each step's
     logits and the prefill's against the forward's at that position,
     within ``rtol`` and ``atol`` (or ``atol_std`` x the forward logits'
     std).  The forward runs under ``routes`` (a :class:`RouteLog`) when
-    given.  Returns ({errors a position, atol, finite, forward seconds},
-    the forward's logits)."""
+    given, with ``extra`` inputs beside the tokens.  Returns ({errors a
+    position, atol, finite, forward seconds}, the forward's logits)."""
     S = prompt.shape[1]
     tokens = torch.cat([prompt, run["fed"]], dim=1)
+    batch = {"tokens": tokens, **(extra or {})}
     t0 = time.perf_counter()
     if routes is None:
-        forward, _ = model.forward(params, {"tokens": tokens})
+        forward, _ = model.forward(params, batch)
     else:
         with routes:
-            forward, _ = model.forward(params, {"tokens": tokens})
+            forward, _ = model.forward(params, batch)
     torch.cuda.synchronize()
     forward_s = time.perf_counter() - t0
     logits = [run["prefill"]] + run["steps"]
@@ -2237,29 +2353,68 @@ def hold_to_forward(torch, model, params, prompt, run, rtol: float, *,
             "forward_s": forward_s, "tokens": tokens}, forward
 
 
+def frames_for(torch, dev, cfg, batch: int, frames: int, gen) -> dict:
+    """An encoder-decoder's stub frame embeddings, (batch, frames,
+    d_model) normal at 0.02 in the compute dtype, as the batch's
+    ``frames``; ``{}`` for ``frames == 0``."""
+    if not frames:
+        return {}
+    from repro_torch.data.generators import torch_dtype
+
+    x = torch.empty((batch, frames, cfg.d_model), device=dev)
+    x.normal_(0.0, 0.02, generator=gen)
+    return {"frames": x.to(torch_dtype(cfg.dtype))}
+
+
+def f32_oracle(torch, cfg, params, prompt, steps: int, extra: dict,
+               report: dict, tol: dict = F32_ORACLE_TOL) -> tuple:
+    """(a'') and those of (c)-(e): ``cfg`` in f32 (the params are f32
+    already, so no weight is cast; TF32 is off) on ``F32_ORACLE_BATCH``
+    rows of ``prompt`` (and of ``extra``), ``steps`` greedy steps held to
+    the f32 forward at ``tol``.  Puts its largest error, its excess and
+    ``tol`` into ``report``; returns (each position's errors, finite)."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg.replace(dtype="float32"))
+    rows = prompt[:F32_ORACLE_BATCH]
+    extra = {k: v[:F32_ORACLE_BATCH].float() for k, v in extra.items()}
+    run = serve_greedy(torch, model, params, rows, steps, extra=extra)
+    held, _ = hold_to_forward(torch, model, params, rows, run, tol["rtol"],
+                              atol=tol["atol"], extra=extra)
+    report["f32_oracle_tol"] = tol
+    report["f32_oracle_max_abs_err"] = max(
+        e["max_abs_err"] for e in held["errs"])
+    report["f32_oracle_excess"] = max(e["excess"] for e in held["errs"])
+    return held["errs"], held["finite"]
+
+
 def serve_full(torch, dev, cfg, batch: int, prompt_len: int, steps: int,
-               *, oracle_cfg=None) -> tuple:
-    """(a) and (a'): ``cfg`` at full width and depth on the card, params
-    from ``MODEL_SEED``: a profiled warm-up prefill and 2 steps, then a
-    timed prefill of ``batch`` x ``prompt_len``, ``pad_caches`` and
-    ``steps`` greedy decode steps, held to its teacher-forced forward
-    (:func:`hold_to_forward`, ``MODEL_BF16_*``).  With an MoE
+               *, frames: int = 0, atol_std: float = MODEL_BF16_ATOL_STD,
+               f32_tol: dict = None, oracle_cfg=None) -> tuple:
+    """(a), (a') and (c)-(e): ``cfg`` at full width and depth on the card,
+    params from ``MODEL_SEED``: a profiled warm-up prefill and 2 steps,
+    then a timed prefill of ``batch`` x ``prompt_len`` (and ``frames``
+    encoder frames for an encoder-decoder), ``pad_caches`` and ``steps``
+    greedy decode steps, held to its teacher-forced forward
+    (:func:`hold_to_forward`, ``MODEL_BF16_RTOL`` and ``atol_std`` x the
+    forward logits' std), then with ``f32_tol`` the f32 oracle
+    (:func:`f32_oracle`) at that tolerance.  With an MoE
     ``oracle_cfg`` (the same weights at a capacity that drops nothing) the
     timed run is not held; the oracle serves the prompt again under
     ``oracle_cfg`` and is held to its forward at ``MOE_BF16_ATOL_STD``,
     with where its routing differs from its forward's
     (:func:`routing_flips`), the assignments ``cfg``'s forward over the
     same tokens drops and its gap to the oracle's (neither held); then
-    (a'') the oracle in f32 on ``MOE_F32_BATCH`` rows of the prompt,
-    held at ``MOE_F32_TOL``.  Returns the report, the held positions'
-    errors (and the f32 oracle's, or ``[]``), and whether every logit was
-    finite; frees the params."""
+    (a'') the f32 oracle under ``oracle_cfg``.  Returns the report, the
+    held positions' errors (and the f32 oracle's, or ``[]``), and whether
+    every logit was finite; frees the params."""
     import statistics
 
     from repro_torch.models import build_model, count_params
 
     B, S, T = batch, prompt_len, steps
-    report = {"model": cfg.name, "batch": B, "prompt": S, "steps": T}
+    report = {"model": cfg.name, "batch": B, "prompt": S, "steps": T,
+              "frames": frames}
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(
@@ -2270,16 +2425,23 @@ def serve_full(torch, dev, cfg, batch: int, prompt_len: int, steps: int,
     gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 1)
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device=dev, dtype=torch.int32)
-    warm = serve_greedy(torch, model, params, prompt, 2, profile=True)
-    timed = serve_greedy(torch, model, params, prompt, T)
+    extra = frames_for(torch, dev, cfg, B, frames, gen)
+    warm = serve_greedy(torch, model, params, prompt, 2, extra=extra,
+                        profile=True)
+    timed = serve_greedy(torch, model, params, prompt, T, extra=extra)
     report["serve_peak_allocated_gb"] = (
         torch.cuda.max_memory_allocated(dev) / 1e9)
     f32_errs = []
     if oracle_cfg is None:
         held, forward = hold_to_forward(
             torch, model, params, prompt, timed, MODEL_BF16_RTOL,
-            atol_std=MODEL_BF16_ATOL_STD)
+            atol_std=atol_std, extra=extra)
         finite = held["finite"]
+        del forward
+        if f32_tol is not None:
+            f32_errs, f32_finite = f32_oracle(torch, cfg, params, prompt, T,
+                                              extra, report, f32_tol)
+            finite = finite and f32_finite
     else:
         finite = all(bool(torch.isfinite(x).all())
                      for x in [timed["prefill"]] + timed["steps"])
@@ -2306,20 +2468,9 @@ def serve_full(torch, dev, cfg, batch: int, prompt_len: int, steps: int,
         report["capacity_gap_argmax_same"] = float(
             (shipped.argmax(-1) == forward.argmax(-1)).float().mean())
         del shipped, shipped_routes, forward
-        # (a'') the oracle in f32: no weight is cast, TF32 is off
-        f32_model = build_model(oracle_cfg.replace(dtype="float32"))
-        f32_prompt = prompt[:MOE_F32_BATCH]
-        f32_run = serve_greedy(torch, f32_model, params, f32_prompt, T)
-        f32, forward = hold_to_forward(
-            torch, f32_model, params, f32_prompt, f32_run,
-            MOE_F32_TOL["rtol"], atol=MOE_F32_TOL["atol"])
-        f32_errs = f32["errs"]
-        report["f32_oracle_max_abs_err"] = max(
-            e["max_abs_err"] for e in f32_errs)
-        report["f32_oracle_excess"] = max(e["excess"] for e in f32_errs)
-        finite = finite and held["finite"] and f32["finite"]
-        del f32_run, f32
-    del forward
+        f32_errs, f32_finite = f32_oracle(torch, oracle_cfg, params, prompt,
+                                          T, extra, report)
+        finite = finite and held["finite"] and f32_finite
     report["forward_s"] = held["forward_s"]
     errs = held["errs"]
     steps_s = timed["step_s"]
@@ -2341,27 +2492,35 @@ def serve_full(torch, dev, cfg, batch: int, prompt_len: int, steps: int,
         "bf16_max_abs_err": max(e["max_abs_err"] for e in errs),
         "bf16_excess": max(e["excess"] for e in errs),
         "argmax_same": min(e["argmax_same"] for e in errs),
-        "bounds": serve_bounds(cfg, B, S)})
+        "bounds": serve_bounds(cfg, B, S, frames)})
     ties = [(S - 1 + i, r, g, e["max_abs_err"])
             for i, e in enumerate(errs) for r, g in e["ties"]]
     report["argmax_splits"] = {
         "positions": sum(1 for e in errs if e["ties"]), "rows": len(ties),
         "max_gap": max((g for _, _, g, _ in ties), default=None),
         "every_gap_under_the_error": all(g < err for _, _, g, err in ties)}
-    del params
+    del params, extra
     return report, errs, ties, f32_errs, finite
 
 
 def host_check(torch, dev, cfg) -> tuple:
-    """(b) and (b'): ``cfg`` at ``MODEL_HOST_LAYERS`` layers in f32 (TF32
-    off by the caller): a prefill of ``MODEL_HOST_PROMPT`` tokens and
-    ``MODEL_HOST_STEPS`` decode steps on the card, then the same weights
-    and tokens through the port on the host.  Returns each position's
-    errors (``MODEL_F32_TOL``) and the host's seconds."""
+    """(b), (b') and those of (c)-(e): ``cfg`` at ``MODEL_HOST_LAYERS``
+    layers in f32 (TF32 off by the caller; at least one whole layer
+    pattern, so recurrentgemma-9b's three layers are one scanned
+    superblock with its local layer; an encoder-decoder's encoder at
+    ``MODEL_HOST_LAYERS`` too, over ``MODEL_HOST_PROMPT`` frames): a
+    prefill of ``MODEL_HOST_PROMPT`` tokens and ``MODEL_HOST_STEPS``
+    decode steps on the card, then the same weights and inputs through
+    the port on the host.  Returns each position's errors
+    (``MODEL_F32_TOL``) and the host's seconds."""
     from repro_torch.models import build_model
     from repro_torch.models.params import tree_map
 
-    small = cfg.replace(num_layers=MODEL_HOST_LAYERS, dtype="float32")
+    small = cfg.replace(num_layers=max(MODEL_HOST_LAYERS,
+                                       len(cfg.layer_pattern)),
+                        dtype="float32")
+    if cfg.is_encoder_decoder:
+        small = small.replace(encoder_layers=MODEL_HOST_LAYERS)
     model = build_model(small)
     params = model.init(torch.Generator(device=dev).manual_seed(
         MODEL_SEED), device=dev)
@@ -2369,10 +2528,15 @@ def host_check(torch, dev, cfg) -> tuple:
     gen = torch.Generator(device=dev).manual_seed(MODEL_SEED + 2)
     prompt = torch.randint(0, cfg.vocab_size, (1, MODEL_HOST_PROMPT),
                            generator=gen, device=dev, dtype=torch.int32)
-    card_run = serve_greedy(torch, model, params, prompt, MODEL_HOST_STEPS)
+    extra = frames_for(torch, dev, small, 1,
+                       MODEL_HOST_PROMPT if cfg.is_encoder_decoder else 0,
+                       gen)
+    card_run = serve_greedy(torch, model, params, prompt, MODEL_HOST_STEPS,
+                            extra=extra)
     t0 = time.perf_counter()
     host_run = serve_greedy(torch, model, host_params, prompt.cpu(),
-                            MODEL_HOST_STEPS, tokens=card_run["fed"].cpu())
+                            MODEL_HOST_STEPS, tokens=card_run["fed"].cpu(),
+                            extra={k: v.cpu() for k, v in extra.items()})
     host_s = time.perf_counter() - t0
     return [logit_errors(c.cpu(), h, **MODEL_F32_TOL) for c, h in zip(
         [card_run["prefill"]] + card_run["steps"],
@@ -2384,11 +2548,15 @@ def log_serving(card: str, r: dict, errs: list, ties: list, f32_errs: list,
     """The lines of one model's serving run (a), its f32 oracle (a'') and
     its host check (b)."""
     name, b = r["model"], r["bounds"]
-    log(f"  {name} on {card}: prefill {r['batch']}x{r['prompt']} "
+    frames = f" over {r['frames']} frames" if r["frames"] else ""
+    log(f"  {name} on {card}: prefill {r['batch']}x{r['prompt']}{frames} "
         f"{r['prefill_tokens_per_s']:.0f} tokens/s "
         f"({r['prefill_s'] * 1e3:.1f} ms, bound {b['prefill'][0]:.2f} ms by "
         f"{b['prefill'][1]}), decode {r['decode_ms_a_token']:.2f} ms a token "
-        f"(bound {b['decode'][0]:.2f} ms by {b['decode'][1]}), peak "
+        f"(bound {b['decode'][0]:.2f} ms by {b['decode'][1]}: "
+        f"{b['decode_bytes'] / 1e9:.3f} GB, "
+        f"{b['decode_cache_bytes'] / 1e9:.4f} GB of it caches and states), "
+        f"peak "
         f"{r['peak_allocated_gb']:.2f} GB allocated "
         f"({r['peak_reserved_gb']:.2f} reserved; the timed serving's "
         f"{r['serve_peak_allocated_gb']:.2f}, beside the f32 params' "
@@ -2422,8 +2590,8 @@ def log_serving(card: str, r: dict, errs: list, ties: list, f32_errs: list,
         f"position's error: {s['every_gap_under_the_error']}")
     for i, e in enumerate(f32_errs):
         log(f"  {name} f32 oracle, position {r['prompt'] - 1 + i}: max abs "
-            f"err {e['max_abs_err']:.4g} ({MOE_F32_TOL}), argmax agreement "
-            f"{e['argmax_same']:.2f}")
+            f"err {e['max_abs_err']:.4g} ({r['f32_oracle_tol']}), argmax "
+            f"agreement {e['argmax_same']:.2f}")
     for i, e in enumerate(host_errs):
         log(f"  {name} f32 card vs host, position {MODEL_HOST_PROMPT - 1 + i}"
             f": max abs err {e['max_abs_err']:.4g}")
@@ -2448,11 +2616,14 @@ def phase_model(torch, dev) -> dict:
     serves the same weights again at a capacity factor where no group of
     the run drops an assignment (``_capacity(mo, Tg) >= Tg``, asserted),
     since a forward group drops its overflow by design and a decode step
-    never does.  For each row whose greedy token differs from the
-    forward's argmax, the forward's top-1 minus top-2 logit is logged
-    beside the position's error.  The six kernels' launches over the
-    phase must be 0: the zoo keeps its own attention, norms and MoE
-    dispatch, as the reference's does.  Returns ``{kernel: launches}``."""
+    never does.  (c)-(e) and theirs: ``FAMILY_RUNS`` (mamba2-780m,
+    recurrentgemma-9b, whisper-small with its encoder frames) as (a) and
+    (b).  Each run frees the previous one's params first.  For each row
+    whose greedy token differs from the forward's argmax, the forward's
+    top-1 minus top-2 logit is logged beside the position's error.  The
+    six kernels' launches over the phase must be 0: the zoo keeps its own
+    attention, norms, MoE dispatch and scans, as the reference's does.
+    Returns ``{kernel: launches}``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2464,10 +2635,13 @@ def phase_model(torch, dev) -> dict:
     torch.cuda.synchronize()
     ops.reset_launches()
     report = {"card": card}
-    for name, (B, S, T) in ((MODEL_NAME, (MODEL_BATCH, MODEL_PROMPT,
-                                           MODEL_STEPS)),
-                            (MOE_MODEL_NAME, (MOE_BATCH, MOE_PROMPT,
-                                              MOE_STEPS))):
+    failures = []
+    for name, B, S, T, frames, atol_std, f32_tol in (
+            (MODEL_NAME, MODEL_BATCH, MODEL_PROMPT, MODEL_STEPS, 0,
+             MODEL_BF16_ATOL_STD, None),
+            (MOE_MODEL_NAME, MOE_BATCH, MOE_PROMPT, MOE_STEPS, 0,
+             MOE_BF16_ATOL_STD, None),
+            *FAMILY_RUNS):
         cfg = get_config(name)
         oracle_cfg = None
         if cfg.moe is not None:
@@ -2485,7 +2659,8 @@ def phase_model(torch, dev) -> dict:
         t0 = time.perf_counter()
         with torch.inference_mode():
             r, errs, ties, f32_errs, finite = serve_full(
-                torch, dev, cfg, B, S, T, oracle_cfg=oracle_cfg)
+                torch, dev, cfg, B, S, T, frames=frames, atol_std=atol_std,
+                f32_tol=f32_tol, oracle_cfg=oracle_cfg)
         if cfg.moe is not None:
             r["k"] = cfg.moe.experts_per_token
         torch.cuda.empty_cache()
@@ -2498,24 +2673,29 @@ def phase_model(torch, dev) -> dict:
         report[name] = r
         log_serving(card, r, errs, ties, f32_errs, host_errs)
         if not finite:
-            raise fail(f"{name}: non-finite logits")
+            failures.append(f"{name}: non-finite logits")
         if r["bf16_excess"] > 0:
-            raise fail(f"{name}: decode differs from the teacher-forced "
-                       f"forward by {r['bf16_max_abs_err']:.4g} (allowed "
-                       f"{r['bf16_atol']:.4g} + {MODEL_BF16_RTOL:.4g}|want|)")
+            failures.append(
+                f"{name}: decode differs from the teacher-forced forward by "
+                f"{r['bf16_max_abs_err']:.4g} (allowed {r['bf16_atol']:.4g} "
+                f"+ {MODEL_BF16_RTOL:.4g}|want|)")
         if r.get("f32_oracle_excess", 0) > 0:
-            raise fail(f"{name}: f32 decode differs from the f32 forward by "
-                       f"{r['f32_oracle_max_abs_err']:.4g} ({MOE_F32_TOL})")
+            failures.append(
+                f"{name}: f32 decode differs from the f32 forward by "
+                f"{r['f32_oracle_max_abs_err']:.4g} ({r['f32_oracle_tol']})")
         if r["f32_excess"] > 0:
-            raise fail(f"{name} x{MODEL_HOST_LAYERS} layers f32: the card "
-                       f"differs from the host by {r['f32_max_abs_err']:.4g}"
-                       f" ({MODEL_F32_TOL})")
+            failures.append(
+                f"{name} f32 at {MODEL_HOST_LAYERS}+ layers: the card "
+                f"differs from the host by {r['f32_max_abs_err']:.4g} "
+                f"({MODEL_F32_TOL})")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     report["launches"] = counts
     log("model serving: " + json.dumps(report))
     if any(counts.values()):
-        raise fail(f"the zoo launched a kernel: {counts}")
+        failures.append(f"the zoo launched a kernel: {counts}")
+    if failures:  # every run above is logged before the phase fails
+        raise fail("; ".join(failures))
     return counts
 
 
@@ -2810,9 +2990,11 @@ def main(argv=None) -> int:
                          "cluster scenarios on ranks sharing the card), "
                          "stress (the stress tier, the pipeline and the "
                          "elastic restore on ranks sharing the card), "
-                         "model (the model zoo's serving path: qwen3-4b "
-                         "and deepseek-v2-lite-16b at full width and depth, "
-                         "prefill and decode), bench (needs "
+                         "model (the model zoo's serving path: qwen3-4b, "
+                         "deepseek-v2-lite-16b, mamba2-780m, "
+                         "recurrentgemma-9b and whisper-small at full "
+                         "width and depth, prefill and decode), bench "
+                         "(needs "
                          "kernels)")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))

@@ -9,13 +9,12 @@ reference does.  Activations carry logical sharding constraints through
 :func:`repro_torch.distributed.shard` (the identity without a mesh).
 
 Ported here: norms, RoPE, activations, the GQA attention layer with its
-prefill and decode paths (linear and ring caches), multi-head latent
+prefill and decode paths (linear and ring caches), cross attention
+against an encoder's memory (Whisper's decoder), multi-head latent
 attention (DeepSeek V2/V3: materialised K/V in prefill, the absorbed form
 against a latent cache in decode), the dense MLP, the MoE layer (the
 sort-based dispatch, with the one-hot einsum dispatch kept as its
-cross-check) and the embeddings.  Cross attention is not ported yet
-(ROADMAP queue 1 item 5a'); :func:`repro_torch.models.model_zoo.build_model`
-refuses the config that needs it.
+cross-check) and the embeddings.
 
 No function here reads a value back to the host: decode positions,
 cache slots, routing, capacity drops and expert counts stay on the
@@ -355,6 +354,31 @@ def attn_apply(
     H, K, d = p["wo"].shape
     out = out.flatten(-2) @ p["wo"].to(dt).reshape(H * K, d)
     return shard(out, "batch", "seq", "embed"), new_cache
+
+
+def cross_attn_apply(p, cfg: ModelConfig, x: torch.Tensor, memory_kv):
+    """Cross attention against precomputed encoder K/V (whisper decoder):
+    non-causal, every memory position visible."""
+    dt = torch_dtype(cfg.dtype)
+    q = _project(x, p["wq"], dt)
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
+    k, v = memory_kv
+    out = flash_attention(q, k, v, causal=False)
+    H, K, d = p["wo"].shape
+    out = out.flatten(-2) @ p["wo"].to(dt).reshape(H * K, d)
+    return shard(out, "batch", "seq", "embed")
+
+
+def cross_attn_kv(p, cfg: ModelConfig, memory: torch.Tensor):
+    """The encoder memory's K and V (B, S_enc, Hkv, D) for
+    :func:`cross_attn_apply`."""
+    dt = torch_dtype(cfg.dtype)
+    k = _project(memory, p["wk"], dt)
+    v = _project(memory, p["wv"], dt)
+    if cfg.qk_norm:
+        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Public model API of the port: build_model(config) -> Model (port of
 ``repro/models/model_zoo.py``'s serving half).
 
-A Model exposes, as the reference's does:
+A Model (and the encoder-decoder :class:`EncDecModel`) exposes, as the
+reference's does:
 
 * ``param_meta()`` / ``cache_meta(batch, seq)`` — ParamMeta trees,
 * ``abstract()`` — meta-device tensors (no memory),
@@ -11,17 +12,17 @@ A Model exposes, as the reference's does:
 * ``prefill(params, batch)`` — (last-token logits, caches),
 * ``decode(params, caches, batch)`` — (logits, caches); batch carries
   ``tokens`` (B, 1) and ``index`` (a 0-d integer tensor on the model's
-  device, the position being written).  Decode writes the new K/V into
-  the cache tensors it is given and returns them (the reference donates
-  them); it reads nothing back to the host, so a step can be captured as
-  a CUDA graph.
+  device, the position being written).  Decode writes the new K/V (or
+  recurrent state) into the cache tensors it is given and returns them
+  (the reference donates them); it reads nothing back to the host, so a
+  step can be captured as a CUDA graph.
 
-:func:`build_model` builds the dense, VLM and MoE decoders (GQA or
-multi-head latent attention; dense or MoE feed-forward layers).  A config
-that needs a block this port does not have yet (SSM, RG-LRU,
-encoder-decoder) raises ``NotImplementedError`` naming the ROADMAP item;
-nothing falls back to another model.  ``cross_entropy``, ``loss`` and the
-encoder-decoder model come with training.
+:func:`build_model` builds all ten configs of the zoo: the dense, VLM and
+MoE decoders (GQA or multi-head latent attention; dense or MoE
+feed-forward layers), Mamba-2 and the RG-LRU hybrid through the trunk,
+and Whisper as an :class:`EncDecModel` (its batches carry ``frames``, the
+stubbed frontend's embeddings).  ``cross_entropy`` and ``loss`` come with
+training.
 """
 from __future__ import annotations
 
@@ -33,32 +34,16 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.data.generators import torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import trunk
+from repro_torch.models import trunk, whisper
 from repro_torch.models.params import abstract_params, init_params, tree_map
 
 f32 = torch.float32
 
 
-def unported(cfg: ModelConfig) -> Optional[str]:
-    """What of ``cfg`` the port cannot build yet (``None``: all of it)."""
-    if cfg.is_encoder_decoder:
-        return "the encoder-decoder model (models/whisper.py, cross attention)"
-    if cfg.family == "ssm" or cfg.ssm is not None:
-        return "the Mamba-2 SSD block (models/mamba2.py)"
-    if cfg.rglru is not None or "recurrent" in cfg.layer_pattern:
-        return "the RG-LRU block (models/rglru.py)"
-    return None
-
-
 class Model:
-    """Decoder-only LM (the dense, VLM and MoE families of the zoo)."""
+    """Decoder-only LM (covers dense / moe / ssm / hybrid / vlm)."""
 
     def __init__(self, cfg: ModelConfig):
-        missing = unported(cfg)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {missing} is not ported to repro_torch yet "
-                f"(ROADMAP queue 1 item 5a')")
         self.cfg = cfg
 
     # -- metadata -----------------------------------------------------------
@@ -136,9 +121,46 @@ class Model:
         return logits, caches
 
 
+class EncDecModel(Model):
+    """Whisper-style encoder-decoder: batches carry ``frames`` (B, S_enc,
+    d) beside ``tokens``; the caches hold each decoder layer's self K/V
+    and the cross K/V of the encoder memory."""
+
+    def param_meta(self) -> Dict[str, Any]:
+        return whisper.whisper_meta(self.cfg)
+
+    def cache_meta(self, batch: int, seq: int) -> Dict[str, Any]:
+        return whisper.whisper_cache_meta(self.cfg, batch, seq)
+
+    def forward(self, params, batch):
+        cfg = self.cfg
+        memory = whisper.encode(params, cfg, batch["frames"])
+        x, _ = whisper.decode_stack(params, cfg, batch["tokens"],
+                                    memory=memory)
+        logits = L.unembed_apply(params["embed"], cfg, x)
+        return logits, torch.zeros((), dtype=f32, device=logits.device)
+
+    def prefill(self, params, batch):
+        cfg = self.cfg
+        memory = whisper.encode(params, cfg, batch["frames"])
+        x, caches = whisper.decode_stack(params, cfg, batch["tokens"],
+                                         memory=memory, want_cache=True)
+        logits = L.unembed_apply(params["embed"], cfg, x[:, -1:])
+        return logits, caches
+
+    def decode(self, params, caches, batch):
+        cfg = self.cfg
+        x, caches = whisper.decode_stack(params, cfg, batch["tokens"],
+                                         caches=caches, index=batch["index"])
+        logits = L.unembed_apply(params["embed"], cfg, x)
+        return logits, caches
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    """The port's model for ``cfg``; raises ``NotImplementedError`` for a
-    config it cannot build yet (:func:`unported`)."""
+    """The port's model for ``cfg``: an :class:`EncDecModel` for an
+    encoder-decoder config, else a :class:`Model`."""
+    if cfg.is_encoder_decoder:
+        return EncDecModel(cfg)
     return Model(cfg)
 
 
@@ -161,7 +183,11 @@ def input_specs(cfg: ModelConfig, cell: ShapeCell,
 
     if cell.kind in ("train", "prefill"):
         specs: Dict[str, Any] = {}
-        if cfg.frontend == "vision_patches":
+        if cfg.is_encoder_decoder:
+            enc_len = max(S // cfg.encoder_downsample, 1)
+            specs["frames"] = _spec((B, enc_len, cfg.d_model), bf)
+            specs["tokens"] = _spec((B, S), i32)
+        elif cfg.frontend == "vision_patches":
             vt = cfg.frontend_tokens
             specs["patch_embeds"] = _spec((B, vt, cfg.d_model), bf)
             specs["tokens"] = _spec((B, S - vt), i32)

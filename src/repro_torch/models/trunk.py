@@ -1,6 +1,7 @@
 """Generic decoder trunk: the pattern-aware stack of layers (port of
-``repro/models/trunk.py`` for the ``attn`` and ``mla`` mixers, with dense
-or MoE feed-forward layers).
+``repro/models/trunk.py``: the ``attn``, ``mla``, ``ssm`` (Mamba-2) and
+``recurrent`` (RG-LRU) mixers, with dense or MoE feed-forward layers; a
+Mamba-2 block has none).
 
 A config's layers are grouped into *segments*:
 
@@ -14,7 +15,8 @@ The parameter and cache trees are the reference's key for key and shape
 for shape.  Where the reference runs a scanned segment with ``lax.scan``,
 the port runs a Python loop over views of the ``layers`` dim: prefill
 stacks each layer's new cache along that dim, and decode writes each
-layer's K/V into its view of the stacked cache in place.  The MoE layers'
+layer's K/V (or recurrent state) into its view of the stacked cache in
+place.  The MoE layers'
 auxiliary losses are summed once, at the end (a dense block adds no
 launch for a zero loss, as XLA's fused zeros cost the reference none).
 ``remat`` comes with training.
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2, rglru
 from repro_torch.models.params import stack_tree, tree_map
 
 f32 = torch.float32
@@ -76,25 +79,23 @@ def _block_kind(cfg: ModelConfig, kind: str) -> str:
     return "mla" if cfg.mla is not None else "attn"
 
 
-def _require_ported(cfg: ModelConfig, kind: str) -> str:
-    """The block's mixer; raises for one the port does not have yet."""
-    mixer = _block_kind(cfg, kind)
-    if mixer in ("ssm", "recurrent"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {mixer!r} mixer is not ported yet (ROADMAP "
-            f"queue 1 item 5a')")
-    return mixer
-
-
 # ---------------------------------------------------------------------------
 # Single block
 # ---------------------------------------------------------------------------
 
 
 def block_meta(cfg: ModelConfig, kind: str, layer_idx: int) -> Dict[str, Any]:
-    mixer = _require_ported(cfg, kind)
+    mixer = _block_kind(cfg, kind)
     m: Dict[str, Any] = {"norm1": L.norm_meta(cfg)}
-    m["mixer"] = L.mla_meta(cfg) if mixer == "mla" else L.attn_meta(cfg)
+    if mixer == "ssm":
+        m["mixer"] = mamba2.ssd_block_meta(cfg)
+        return m  # mamba2 blocks have no separate FFN
+    if mixer == "recurrent":
+        m["mixer"] = rglru.rglru_block_meta(cfg)
+    elif mixer == "mla":
+        m["mixer"] = L.mla_meta(cfg)
+    else:
+        m["mixer"] = L.attn_meta(cfg)
     m["norm2"] = L.norm_meta(cfg)
     if _is_moe_layer(cfg, layer_idx):
         m["ffn"] = L.moe_meta(cfg)
@@ -111,7 +112,12 @@ def block_meta(cfg: ModelConfig, kind: str, layer_idx: int) -> Dict[str, Any]:
 
 def block_cache_meta(cfg: ModelConfig, kind: str, batch: int,
                      seq: int) -> Optional[Dict[str, Any]]:
-    if _require_ported(cfg, kind) == "mla":
+    mixer = _block_kind(cfg, kind)
+    if mixer == "ssm":
+        return mamba2.ssd_cache_meta(cfg, batch)
+    if mixer == "recurrent":
+        return rglru.rglru_cache_meta(cfg, batch)
+    if mixer == "mla":
         return L.mla_cache_meta(cfg, batch, seq)
     cache_len = seq
     if kind == "local" and cfg.sliding_window and cfg.sliding_window < seq:
@@ -130,11 +136,20 @@ def block_apply(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
     """(x, the block's new cache, its auxiliary loss: the MoE layer's, or
     ``None``)."""
-    mixer = _require_ported(cfg, kind)
+    mixer = _block_kind(cfg, kind)
     aux = None
 
     h = L.norm_apply(p["norm1"], cfg, x)
-    if mixer == "mla":
+    if mixer == "ssm":
+        a, new_cache = mamba2.ssd_block_apply(
+            p["mixer"], cfg, h, cache=cache, index=index,
+            want_cache=want_cache)
+        return x + a, new_cache, aux
+    if mixer == "recurrent":
+        a, new_cache = rglru.rglru_block_apply(
+            p["mixer"], cfg, h, cache=cache, index=index,
+            want_cache=want_cache)
+    elif mixer == "mla":
         a, new_cache = L.mla_apply(p["mixer"], cfg, h, positions=positions,
                                    cache=cache, index=index,
                                    want_cache=want_cache)

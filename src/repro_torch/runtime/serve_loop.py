@@ -13,7 +13,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.params import tree_map
 
 
 def make_prefill_step(model: Model):
@@ -37,7 +36,12 @@ def pad_caches(model: Model, caches, batch_size: int, target_len: int):
 
     Pads every leaf with zeros up to the shape of ``model.cache_meta(batch,
     target)``; padded positions are masked by ``index`` during decode.
-    (Ring-buffer local-window caches are already final-size.)
+    Ring-buffer local-window caches and recurrent states are already
+    final-size, and so are an encoder-decoder's cross K/V (the ``cross``
+    subtree): they hold the encoder memory, whose length decode does not
+    change.  The reference pads those too, with zero keys that its cross
+    attention does not mask (ROADMAP queue 3 item 18); here they stay as
+    the prefill left them.
     """
     target_meta = model.cache_meta(batch_size, target_len)
 
@@ -51,4 +55,10 @@ def pad_caches(model: Model, caches, batch_size: int, target_len: int):
             return F.pad(leaf, [x for p in reversed(pads) for x in (0, p)])
         return leaf
 
-    return tree_map(pad, target_meta, caches)
+    def walk(m, c):
+        if not isinstance(m, dict):
+            return pad(m, c)
+        return {k: c[k] if k == "cross" else walk(m[k], c[k])
+                for k in sorted(m)}
+
+    return walk(target_meta, caches)

@@ -126,6 +126,7 @@ def test_the_port_imports_nothing_of_jax_or_the_reference():
         "configs/__init__", "configs/base", "configs/qwen3_4b",
         "configs/whisper_small", "models/__init__", "models/params",
         "models/flash", "models/layers", "models/trunk", "models/model_zoo",
+        "models/mamba2", "models/rglru", "models/whisper",
         "runtime/serve_loop")} <= scanned
     assert len([f for f in scanned
                 if f.startswith("src/repro_torch/configs/")]) == 12

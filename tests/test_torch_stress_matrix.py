@@ -349,9 +349,13 @@ def test_gates_match_the_reference_run(runs):
     assert run["quick"] is ref["quick"] is True
 
 
-#: payload keys whose values are the platform's: the fault case's EMA is a
-#: wall clock; an error text names each package's own remedy
-UNCOMPARED = {"ema_s", "error"}
+#: payload keys whose values are the platform's: the fault case's EMA and
+#: its stragglers come from the wall clock (under several test workers a
+#: step of a few microseconds can take 2.5x the EMA in one package and not
+#: the other; the straggler rule itself is held on identical walls in
+#: test_torch_fault_tolerance.py); an error text names each package's own
+#: remedy
+UNCOMPARED = {"ema_s", "stragglers", "error"}
 
 
 @pytest.mark.parametrize("case", list(STRESS_CASES))

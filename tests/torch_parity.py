@@ -111,13 +111,103 @@ def cuda_device() -> torch.device:
 # the model zoo: one config in both packages, the same weights
 # ---------------------------------------------------------------------------
 
-#: the configs the port builds; the other three raise NotImplementedError
+#: the configs the port builds: all ten of the zoo
 ZOO_BUILDABLE = ("qwen3-4b", "tinyllama-1.1b", "mistral-nemo-12b",
                  "gemma2-9b", "internvl2-1b", "deepseek-v2-lite-16b",
-                 "deepseek-v3-671b")
-ZOO_UNPORTED = ("mamba2-780m", "recurrentgemma-9b", "whisper-small")
+                 "deepseek-v3-671b", "mamba2-780m", "recurrentgemma-9b",
+                 "whisper-small")
 #: the MoE configs (multi-head latent attention and MoE layers)
 ZOO_MOE = ("deepseek-v2-lite-16b", "deepseek-v3-671b")
+#: the configs whose prefill caches differ from the reference's on purpose
+#: (ROADMAP queue 3 item 18): a recurrent conv tail (Mamba-2, RG-LRU), and
+#: Whisper's cross K/V, which ``pad_caches`` leaves at the memory's length
+ZOO_RECURRENT = ("mamba2-780m", "recurrentgemma-9b")
+ZOO_ITEM_18 = ZOO_RECURRENT + ("whisper-small",)
+
+
+def extra_inputs(cfg, rng, batch: int, seq: int) -> dict:
+    """The numpy inputs beside ``tokens`` (B, seq) a config's batch
+    carries: a VLM's ``patch_embeds`` or an encoder-decoder's ``frames``
+    (``seq // encoder_downsample`` of them), normal at 0.02 in f32 (each
+    package casts them)."""
+    if cfg.frontend == "vision_patches":
+        shape = (batch, cfg.frontend_tokens, cfg.d_model)
+        key = "patch_embeds"
+    elif cfg.is_encoder_decoder:
+        shape = (batch, max(seq // cfg.encoder_downsample, 1), cfg.d_model)
+        key = "frames"
+    else:
+        return {}
+    return {key: (rng.standard_normal(shape) * 0.02).astype(np.float32)}
+
+
+def text_offset(cfg, extra: dict) -> int:
+    """The positions a config's extra inputs take before the text's (a
+    VLM's patches; frames are the encoder's, not the decoder's)."""
+    return cfg.frontend_tokens if "patch_embeds" in extra else 0
+
+
+def ref_conv_tail(x, width: int):
+    """The last ``width - 1`` rows of a reference array ``x`` (B, S, C),
+    left-padded with zeros when S is shorter."""
+    import jax.numpy as jnp
+
+    t = x[:, -(width - 1):]
+    pad = width - 1 - t.shape[1]
+    return jnp.pad(t, ((0, 0), (pad, 0), (0, 0))) if pad > 0 else t
+
+
+@contextlib.contextmanager
+def reference_conv_inputs():
+    """While active, the reference's Mamba-2 and RG-LRU blocks return, in a
+    prefill's cache, ``conv_in`` beside ``conv``: the last ``W - 1`` rows
+    of the conv's *input* (the projection before ``causal_conv1d``),
+    left-padded with zeros, computed as the reference's block computes
+    that projection.  That is what the port caches as ``conv`` (ROADMAP
+    queue 3 item 18).  :func:`split_conv_inputs` takes the two apart."""
+    import jax.numpy as jnp
+
+    from repro.models import mamba2 as RM2, rglru as RG
+
+    ssd_orig, lru_orig = RM2.ssd_block_apply, RG.rglru_block_apply
+
+    def ssd(p, cfg, x, **kw):
+        out, nc = ssd_orig(p, cfg, x, **kw)
+        if kw.get("want_cache") and kw.get("index") is None:
+            _, d_in, _, conv_dim = RM2._dims(cfg)
+            proj = jnp.einsum("bsd,dp->bsp", x,
+                              p["win"].astype(jnp.dtype(cfg.dtype)))
+            nc = dict(nc, conv_in=ref_conv_tail(
+                proj[..., d_in:d_in + conv_dim], cfg.ssm.conv_width))
+        return out, nc
+
+    def lru(p, cfg, x, **kw):
+        out, nc = lru_orig(p, cfg, x, **kw)
+        if kw.get("want_cache") and kw.get("index") is None:
+            x1 = jnp.einsum("bsd,dw->bsw", x,
+                            p["w1"].astype(jnp.dtype(cfg.dtype)))
+            nc = dict(nc, conv_in=ref_conv_tail(x1, cfg.rglru.conv_width))
+        return out, nc
+
+    RM2.ssd_block_apply, RG.rglru_block_apply = ssd, lru
+    try:
+        yield
+    finally:
+        RM2.ssd_block_apply, RG.rglru_block_apply = ssd_orig, lru_orig
+
+
+def split_conv_inputs(tree):
+    """A cache tree made under :func:`reference_conv_inputs` -> (the
+    reference's own caches, the caches with ``conv`` replaced by
+    ``conv_in``: what the port's prefill caches)."""
+    if not isinstance(tree, dict):
+        return tree, tree
+    if "conv_in" in tree:
+        own = {k: v for k, v in tree.items() if k != "conv_in"}
+        return own, dict(own, conv=tree["conv_in"])
+    pairs = {k: split_conv_inputs(v) for k, v in tree.items()}
+    return ({k: a for k, (a, _) in pairs.items()},
+            {k: b for k, (_, b) in pairs.items()})
 
 
 def no_drop_capacity(moe) -> float:
@@ -185,6 +275,12 @@ F32_TOL = dict(rtol=1e-4, atol=1e-4)
 
 def zoo_tol(dtype: str, want) -> dict:
     return F32_TOL if dtype == "float32" else bf16_tol(want)
+
+
+def zoo_close(got, want, dtype: str, msg: str = "") -> None:
+    """``got`` against the reference's ``want`` at :func:`zoo_tol`."""
+    np.testing.assert_allclose(as_np(got), as_np(want),
+                               **zoo_tol(dtype, as_np(want)), err_msg=msg)
 
 
 # ---------------------------------------------------------------------------
@@ -326,3 +422,69 @@ def assert_rows_close(got, want, tol: dict, skip=None, notes=()) -> None:
             else np.asarray(skip).reshape(want.shape[:-1]))
     msg = "\n".join(notes)
     np.testing.assert_allclose(got[~skip], want[~skip], **tol, err_msg=msg)
+
+
+# ---------------------------------------------------------------------------
+# one block of the zoo in both packages, and serving against the forward
+# ---------------------------------------------------------------------------
+
+
+def block_params(meta_fn, rcfg, seed: int = 0, jitter: float = 0.1):
+    """A reference block's params from ``meta_fn(rcfg)`` at ``seed``, each
+    leaf moved by ``jitter`` x a standard normal draw (so biases, gates
+    and scales are not their zeros and ones), as (numpy tree for the
+    reference, the port's tree on the CPU)."""
+    import jax
+
+    from repro.models.params import init_params
+    from repro_torch.convert import model_params_from_reference
+
+    rng = np.random.default_rng(seed)
+    tree = jax_tree_to_numpy(init_params(jax.random.key(seed),
+                                         meta_fn(rcfg)))
+
+    def move(t):
+        if isinstance(t, dict):
+            return {k: move(t[k]) for k in sorted(t)}
+        return (t + jitter * rng.standard_normal(t.shape)).astype(t.dtype)
+
+    tree = move(tree)
+    return tree, model_params_from_reference(tree, "cpu")
+
+
+def serve_teacher_forced(rm, rp, m, p, *, batch: int, prompt: int,
+                         steps: int, seed: int = 0):
+    """The port's prefill of ``prompt`` tokens, its ``pad_caches`` to
+    ``prompt + steps`` and ``steps - 1`` decode steps fed the next tokens
+    of a random sequence, against the reference's jitted forward over the
+    whole sequence.  Returns (each position's port logits (B, V), from
+    position ``prompt - 1`` on; the forward's logits at those positions
+    (B, steps, V) numpy; a copy of the port's prefill caches; the padded
+    ones, as the decode steps left them)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.models.params import tree_map
+    from repro_torch.runtime import pad_caches
+
+    cfg = m.cfg
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(0, cfg.vocab_size,
+                       (batch, prompt + steps - 1)).astype(np.int32)
+    extra = extra_inputs(cfg, rng, batch, prompt)
+    off = text_offset(cfg, extra)
+    textra = {k: torch.from_numpy(v) for k, v in extra.items()}
+    logits, caches = m.prefill(p, {"tokens": torch.from_numpy(
+        seq[:, :prompt]), **textra})
+    prefilled = tree_map(torch.clone, caches)
+    padded = pad_caches(m, caches, batch, off + prompt + steps)
+    got, c = [logits[:, 0]], padded
+    for i in range(steps - 1):
+        logits, c = m.decode(p, c, {
+            "tokens": torch.from_numpy(seq[:, prompt + i:prompt + i + 1]),
+            "index": torch.tensor(off + prompt + i, dtype=torch.int32)})
+        got.append(logits[:, 0])
+    want, _ = jax.jit(rm.forward)(rp, {
+        "tokens": jnp.asarray(seq),
+        **{k: jnp.asarray(v) for k, v in extra.items()}})
+    return got, as_np(want)[:, prompt - 1:], prefilled, padded
