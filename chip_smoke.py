@@ -186,6 +186,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at three layers, one superblock).  Fails if any of the six kernels launched: the zoo keeps
    its own attention, norms, MoE dispatch and scans, as the reference's
    does;
+6j. train: the model zoo's training path (``repro_torch.optim``,
+   ``data.pipeline``, ``runtime.train_loop``, ``Model.loss`` with remat
+   and the flash backward), counters zeroed just before and read just
+   after.  (a) tinyllama-1.1b at full width and depth (22 layers,
+   1,100,048,384 f32 params from a seed, bf16 activations, remat, AdamW
+   under ``warmup_cosine``): one warm-up step and ``TRAIN_STEPS`` (6)
+   timed steps of 8 x 2048 tokens from ``synthetic_lm_batch`` through
+   ``DataPipeline`` and ``make_train_step``, then one step under the
+   profiler; fails on a non-finite loss or grad norm, a step-0 loss more
+   than ``TRAIN_LOSS_BAND`` from ln(vocab) or a param leaf the step left
+   unchanged, and logs step ms (median), tokens/s, device busy ms and
+   launches and the memory peak beside ``train_bounds`` and every
+   step's loss; (b) the same width at two layers in f32 with TF32 off,
+   one step of 2 x 256 on the card against the host from the same state
+   (``TRAIN_HOST_TOL`` over the loss, the grad norm and every leaf of
+   params, m and v); (c) the flash backward at (1, 2048, 32, 64) over 4
+   KV heads, causal and windowed with softcap, against autograd through
+   the plain forward (``FLASH_BWD_TOL`` of each gradient's largest
+   entry); (d) ``repro_torch.bench.train_lm`` at its defaults through
+   ``launch.train``, ``FaultTolerantRunner`` and ``CheckpointManager``:
+   the last loss below the first, 0 recoveries.  Fails if any of the six
+   kernels launched;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -207,7 +229,8 @@ as ``serve_launches``, its launches over each case of phase 6e as
 ``case_studies_launches``, for the first three its launches on each
 rank of each run of phase 6g as ``scenario_launches``, its launches on
 each rank of phase 6h (a) as ``stress_launches``, its launches over
-phase 6i as ``model_launches``, and, for the first three, its launches over
+phase 6i as ``model_launches``, its launches over phase 6j as
+``train_launches``, and, for the first three, its launches over
 one call a chunk of phase 6f (b) as ``population_launches`` and its
 phase 6f (a) rows as ``lane_forms``), the
 card's name and power limit, and
@@ -1708,10 +1731,13 @@ def phase_case_studies(torch, dev, work: Path) -> dict:
 #: scenarios): (label, workloads, the run's own flags, whether it runs
 #: ``--check``, the kernels each rank must launch).  The re-tunes under
 #: each mesh run on K-means and PageRank, the population bench with
-#: them.  The AI workloads run without ``--check``: at scale 0.2
-#: AlexNet's batch of 25 divides no mesh and Inception-V3's of 6 not
-#: dp4's, so those steps run whole on every rank and move no collective,
-#: as the reference's do not, and the reference's gate "zero
+#: them.  Not cut for time: at ``--iters 6`` the re-tunes took as long
+#: (they stop before their budget) and the lighter K-means proxy's
+#: population bench no longer gained from 4 ranks (0.98x, failing its
+#: gate; 1.44-2.00x at 8).  The AI workloads run without ``--check``: at
+#: scale 0.2 AlexNet's batch of 25 divides no mesh and Inception-V3's of
+#: 6 not dp4's, so those steps run whole on every rank and move no
+#: collective, as the reference's do not, and the reference's gate "zero
 #: real-workload collective bytes" would fail them; this phase holds
 #: their other gates itself, and a step whose inputs split must move
 #: collective bytes.
@@ -2052,9 +2078,11 @@ FAMILY_RUNS = (
     ("whisper-small", 4, 32, 32, 1500, MODEL_BF16_ATOL_STD, F32_ORACLE_TOL))
 
 
-def profiled(torch, fn):
+def profiled(torch, fn, top: int = 4):
     """``fn()`` under ``torch.profiler``: (its result, device busy ms (the
-    kernels' summed time), kernel launches, the top four kernels)."""
+    kernels' summed time), kernel launches, the ``top`` kernels, the
+    ``top`` ATen ops by the device time of the kernels they launched
+    themselves)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2062,12 +2090,16 @@ def profiled(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    top = [f"{_device_ms(e):.3f} ms x{e.count} {e.key[:60]}"
-           for e in sorted(kernels, key=_device_ms, reverse=True)[:4]]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    aten = [e for e in events if e.device_type == DeviceType.CPU
+            and e.key.startswith("aten::") and _device_ms(e) > 0]
+
+    def lines(rows):
+        return [f"{_device_ms(e):.3f} ms x{e.count} {e.key[:60]}"
+                for e in sorted(rows, key=_device_ms, reverse=True)[:top]]
     return (out, sum(_device_ms(e) for e in kernels),
-            sum(e.count for e in kernels), top)
+            sum(e.count for e in kernels), lines(kernels), lines(aten))
 
 
 def serve_greedy(torch, model, params, prompt, steps: int, *,
@@ -2699,6 +2731,361 @@ def phase_model(torch, dev) -> dict:
     return counts
 
 
+#: the train phase (6j): the zoo's training path at full width and depth,
+#: tinyllama-1.1b (arXiv:2401.02385: 22 layers, d_model 2048, 32 query
+#: heads over 4 KV heads of 64, d_ff 5632, vocab 32,000, untied head;
+#: ``TRAIN_PARAMS`` f32 params from ``TRAIN_SEED``, bf16 activations,
+#: remat on as ``TrainSettings`` defaults it, AdamW's defaults with
+#: ``warmup_cosine``): one warm-up step, then ``TRAIN_STEPS`` timed steps
+#: of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (its pretraining context)
+#: from ``synthetic_lm_batch`` through ``DataPipeline``, straight through
+#: ``make_train_step`` (``FaultTolerantRunner``'s blocking step-0 and
+#: final saves would each write 13.2 GB of state)
+TRAIN_NAME = "tinyllama-1.1b"
+TRAIN_SEED = 0
+TRAIN_PARAMS = 1_100_048_384
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
+#: random weights: the step-0 loss lies within this of ln(vocab)
+TRAIN_LOSS_BAND = 1.5
+#: (b): the same width at ``MODEL_HOST_LAYERS`` layers in f32, TF32 off,
+#: one step from the same state and batch on the card and on the host:
+#: loss, grad norm and every leaf of params, m and v
+TRAIN_HOST_BATCH, TRAIN_HOST_SEQ = 2, 256
+TRAIN_HOST_TOL = dict(rtol=1e-4, atol=1e-4)
+#: (c): the flash backward at tinyllama's attention shape, (B, S, Hq,
+#: Hkv, D), f32, against autograd through the plain ``flash_forward`` on
+#: the card, each gradient's max abs error over its largest entry; the
+#: causal case, then a windowed and softcapped one
+FLASH_BWD_SHAPE = (1, 2048, 32, 4, 64)
+FLASH_BWD_CASES = (dict(causal=True),
+                   dict(causal=True, window=512, softcap=50.0))
+FLASH_BWD_TOL = 1e-4
+
+
+def train_bounds(cfg, batch: int, seq: int) -> dict:
+    """The least ms the card could take for one train step of (batch,
+    seq) tokens of an attention trunk with remat, (ms, bound_by): every
+    input read once and every output written once (f32 params, m and v
+    read and written, the batch read: 24 bytes a param); operations at
+    the bf16 rate, 2 a param a token for the trunk's products once
+    forward, once recomputed and twice backward, and for the head's
+    (never recomputed) three times; at the f32 rate the attention
+    products the plain flash computes (every key block of its band, the
+    masked ones too): QK and PV forward and recomputed, and five in the
+    backward (the scores again, dV, dP, dQ, dK)."""
+    from repro_torch.models import build_model, count_params
+    from repro_torch.models.flash import _band_params
+    from repro_torch.models.trunk import _block_kind, build_segments
+
+    meta = build_model(cfg).param_meta()
+    n_all, n_trunk = count_params(meta), count_params(meta["trunk"])
+    tokens = batch * seq
+    head = cfg.vocab_size * cfg.d_model
+    bf16_ops = 2.0 * tokens * (4 * n_trunk + 3 * head)
+    qc, kc = min(cfg.attn_q_chunk, seq), min(cfg.attn_kv_chunk, seq)
+    f32_ops = 0.0
+    for seg in build_segments(cfg):
+        for kind in seg.kinds:
+            if _block_kind(cfg, kind) != "attn":
+                raise ValueError(f"{cfg.name}: train_bounds counts "
+                                 f"attention trunks, not {kind}")
+            window = cfg.sliding_window if kind == "local" else None
+            nq, _, _, nband = _band_params(seq, seq, qc, kc, window, True)
+            pairs = nq * qc * nband * kc
+            f32_ops += (seg.count * 2.0 * batch * cfg.num_heads * pairs
+                        * cfg.resolved_head_dim() * 9)
+    step_bytes = 24 * n_all + 8 * tokens
+    bf, f32 = PEAK_FLOPS["bfloat16"], PEAK_FLOPS["float32"]
+    return {"step": bound_of(bf16_ops / bf + f32_ops / f32,
+                             step_bytes / HBM_BYTES_PER_S)[:2],
+            "bf16_ops": bf16_ops, "f32_ops": f32_ops,
+            "step_bytes": step_bytes}
+
+
+def train_settings(total_steps: int):
+    """AdamW's defaults under ``warmup_cosine``, the warm-up as
+    ``launch.train`` sets it."""
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.runtime import TrainSettings
+
+    return TrainSettings(optimizer=AdamWConfig(
+        schedule=warmup_cosine(max(total_steps // 20, 10), total_steps)))
+
+
+def train_full(torch, dev, cfg) -> dict:
+    """(a): ``cfg`` at full width and depth, one warm-up step then
+    ``TRAIN_STEPS`` timed ones, each on the host clock to the device's
+    end, then one more under the profiler.  Returns the report."""
+    from repro_torch.data import DataPipeline, synthetic_lm_batch
+    from repro_torch.models import build_model, count_params
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    model = build_model(cfg)
+    settings = train_settings(TRAIN_STEPS + 2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), model, settings, device=dev)
+    torch.cuda.synchronize()
+    r = {"model": cfg.name, "batch": B, "seq": S,
+         "params": count_params(model.param_meta()),
+         "init_s": time.perf_counter() - t0,
+         "bounds": train_bounds(cfg, B, S)}
+    step_fn = make_train_step(model, settings)
+    pipe = DataPipeline(
+        lambda sd, st: synthetic_lm_batch(sd, st, B, S, cfg.vocab_size),
+        seed=TRAIN_SEED, device=dev)
+    r["losses"], r["grad_norms"], step_s = [], [], []
+    try:
+        for i in range(1 + TRAIN_STEPS):
+            _, batch = next(pipe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            if i:
+                step_s.append(time.perf_counter() - t0)
+            else:
+                r["first_step_s"] = time.perf_counter() - t0
+                r["unchanged_leaves"] = sum(
+                    torch.equal(a, b) for a, b in zip(
+                        tree_leaves(state["params"]),
+                        tree_leaves(new["params"])))
+            state = new
+            del new
+            r["losses"].append(float(metrics["loss"]))
+            r["grad_norms"].append(float(metrics["grad_norm"]))
+        _, batch = next(pipe)
+        _, r["busy_ms"], r["kernels"], r["top"], r["top_ops"] = profiled(
+            torch, lambda: step_fn(state, batch), top=10)
+    finally:
+        pipe.close()
+    del state
+    step_s.sort()
+    r["step_ms"] = step_s[len(step_s) // 2] * 1e3
+    r["step_ms_all"] = [round(x * 1e3, 1) for x in step_s]
+    r["tokens_per_s"] = B * S / (r["step_ms"] / 1e3)
+    r["peak_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    r["peak_reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
+    return r
+
+
+def train_host_check(torch, dev, cfg) -> dict:
+    """(b): ``cfg`` at ``MODEL_HOST_LAYERS`` layers in f32 (TF32 off by
+    the caller), one step of ``TRAIN_HOST_BATCH`` x ``TRAIN_HOST_SEQ``
+    from the same state and batch on the card and on the host: the
+    largest abs error of the loss, the grad norm and every leaf of the
+    new params, m and v, and the worst excess over ``TRAIN_HOST_TOL``."""
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    small = cfg.replace(num_layers=MODEL_HOST_LAYERS, dtype="float32")
+    model = build_model(small)
+    settings = train_settings(TRAIN_STEPS + 2)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(
+        TRAIN_SEED), model, settings, device=dev)
+    host_state = tree_map(lambda t: t.cpu(), state)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_lm_batch(
+        TRAIN_SEED, 0, TRAIN_HOST_BATCH, TRAIN_HOST_SEQ,
+        cfg.vocab_size).items()}
+    step_fn = make_train_step(model, settings)
+    card, card_m = step_fn(state, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, host_m = step_fn(host_state, batch)
+    out = {"host_s": time.perf_counter() - t0, "loss": float(host_m["loss"]),
+           "max_abs_err": 0.0, "excess": -1.0, "worst": None}
+
+    def hold(name, got, want):
+        got, want = got.detach().cpu().double(), want.detach().double()
+        err = float((got - want).abs().max())
+        excess = float(((got - want).abs() - TRAIN_HOST_TOL["atol"]
+                        - TRAIN_HOST_TOL["rtol"] * want.abs()).max())
+        if excess > out["excess"]:
+            out["excess"], out["worst"] = excess, name
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+
+    for k in ("loss", "grad_norm"):
+        hold(k, card_m[k], host_m[k])
+    out["leaves"] = 0
+    for part, got, want in (("params", card["params"], host["params"]),
+                            ("m", card["opt"]["m"], host["opt"]["m"]),
+                            ("v", card["opt"]["v"], host["opt"]["v"])):
+        for (key, a), b in zip(flat_items(got), tree_leaves(want)):
+            hold(f"{part}/{key}", a, b)
+            out["leaves"] += 1
+    return out
+
+
+def flat_items(tree, prefix: str = ""):
+    """``(path, leaf)`` of nested dicts, keys in sorted order (the order
+    of ``tree_leaves``)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from flat_items(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def flash_bwd_check(torch, dev) -> list:
+    """(c): ``flash_attention``'s gradients (its autograd Function, the
+    port's ``flash_backward``) against autograd through the plain
+    ``flash_forward`` on the card, f32, at ``FLASH_BWD_SHAPE``, one row a
+    case of ``FLASH_BWD_CASES``: each gradient's max abs error over its
+    largest entry, and ms a forward and backward of each (CUDA events,
+    3 calls)."""
+    from repro_torch.models.flash import flash_attention, flash_forward
+
+    B, S, Hq, Hkv, D = FLASH_BWD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, k, v, dout = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D), \
+        rnd(B, S, Hq, D)
+    rows = []
+    for kw in FLASH_BWD_CASES:
+        def grads(fn, kw=kw):
+            ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(fn(*ts, **kw), ts, dout)
+
+        def plain(*a, **k_):
+            return flash_forward(*a, **k_)[0]
+
+        got, want = grads(flash_attention), grads(plain)
+        row = {"case": kw}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            row[name] = float((a - b).abs().max() / b.abs().max())
+        row["ms"] = time_ms(torch, lambda: grads(flash_attention), iters=3,
+                            warmup=1)
+        row["autograd_ms"] = time_ms(torch, lambda: grads(plain), iters=3,
+                                     warmup=1)
+        rows.append(row)
+        del got, want
+    return rows
+
+
+def phase_train(torch, dev) -> dict:
+    """The zoo's training path, with the launch counters zeroed just
+    before and read just after: (a) ``TRAIN_NAME`` at full width and
+    depth (:func:`train_full`): fails on a non-finite loss or grad norm
+    at any step, a step-0 loss more than ``TRAIN_LOSS_BAND`` from
+    ln(vocab), a param leaf the warm-up step left unchanged, or a param
+    count other than ``TRAIN_PARAMS``; logs step ms (median of the timed
+    steps) and tokens/s beside :func:`train_bounds`, the profiled step's
+    device busy ms and kernel launches, the device-memory peak and every
+    step's loss.  (b) :func:`train_host_check` within ``TRAIN_HOST_TOL``.
+    (c) :func:`flash_bwd_check` within ``FLASH_BWD_TOL``.  (d)
+    ``repro_torch.bench.train_lm`` at its defaults (qwen3-4b at
+    ``--reduce 6``, 200 steps of 8 x 256 through ``launch.train.train``,
+    ``FaultTolerantRunner`` and ``CheckpointManager`` in a temporary
+    directory): its last loss below its first, 0 recoveries.  The six
+    kernels' launches over the phase must be 0: the zoo's training path
+    keeps its own attention, norms and optimiser, as the reference's
+    does.  Returns ``{kernel: launches}``."""
+    import math
+
+    from repro_torch.bench import train_lm
+    from repro_torch.configs import get_config
+    from repro_torch.device import full_f32
+    from repro_torch.kernels import ops
+
+    card = card_line()
+    cfg = get_config(TRAIN_NAME)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    failures = []
+    t0 = time.perf_counter()
+    r = train_full(torch, dev, cfg)
+    r["seconds"] = time.perf_counter() - t0
+    b = r["bounds"]
+    log(f"  {cfg.name} on {card}: {r['params']:,} f32 params, train step "
+        f"{r['batch']}x{r['seq']} {r['step_ms']:.1f} ms (median of "
+        f"{TRAIN_STEPS}: {r['step_ms_all']}; the warm-up step "
+        f"{r['first_step_s'] * 1e3:.1f} ms), {r['tokens_per_s']:.0f} "
+        f"tokens/s; bound {b['step'][0]:.2f} ms by {b['step'][1]} "
+        f"({b['bf16_ops']:.4g} bf16 and {b['f32_ops']:.4g} f32 operations, "
+        f"{b['step_bytes'] / 1e9:.2f} GB); peak {r['peak_allocated_gb']:.2f} "
+        f"GB allocated ({r['peak_reserved_gb']:.2f} reserved)")
+    log(f"  a step under the profiler: device busy {r['busy_ms']:.2f} ms, "
+        f"{r['kernels']} kernel launches; top kernels: "
+        f"{'; '.join(r['top'])}; top ATen ops by their kernels' time: "
+        f"{'; '.join(r['top_ops'])}")
+    log(f"  losses by step: {[round(x, 4) for x in r['losses']]}; grad "
+        f"norms: {[round(x, 4) for x in r['grad_norms']]}")
+    ln_v = math.log(cfg.vocab_size)
+    if r["params"] != TRAIN_PARAMS:
+        failures.append(f"{cfg.name}: {r['params']} params, not "
+                        f"{TRAIN_PARAMS}")
+    if not all(map(math.isfinite, r["losses"] + r["grad_norms"])):
+        failures.append(f"{cfg.name}: a non-finite loss or grad norm")
+    if not abs(r["losses"][0] - ln_v) <= TRAIN_LOSS_BAND:
+        failures.append(f"{cfg.name}: step-0 loss {r['losses'][0]:.4f} is "
+                        f"more than {TRAIN_LOSS_BAND} from ln(vocab) "
+                        f"{ln_v:.4f}")
+    if r["unchanged_leaves"]:
+        failures.append(f"{cfg.name}: the step left {r['unchanged_leaves']} "
+                        f"param leaves unchanged")
+    torch.cuda.empty_cache()
+
+    with full_f32():
+        h = train_host_check(torch, dev, cfg)
+    torch.cuda.empty_cache()
+    r["host_check"] = h
+    log(f"  {cfg.name} f32 at {MODEL_HOST_LAYERS} layers, one step of "
+        f"{TRAIN_HOST_BATCH}x{TRAIN_HOST_SEQ}, card vs host: max abs err "
+        f"{h['max_abs_err']:.4g} over the loss, the grad norm and "
+        f"{h['leaves']} leaves of params, m and v (worst excess over "
+        f"{TRAIN_HOST_TOL}: {h['excess']:.4g} at {h['worst']}; host "
+        f"{h['host_s']:.1f} s, loss {h['loss']:.4f})")
+    if h["excess"] > 0:
+        failures.append(f"{cfg.name} f32 train step: the card differs from "
+                        f"the host by {h['max_abs_err']:.4g} "
+                        f"({TRAIN_HOST_TOL}, at {h['worst']})")
+
+    with full_f32():
+        rows = flash_bwd_check(torch, dev)
+    r["flash_backward"] = rows
+    for row in rows:
+        log(f"  flash backward {FLASH_BWD_SHAPE} f32 {row['case']}: dq "
+            f"{row['dq']:.3g}, dk {row['dk']:.3g}, dv {row['dv']:.3g} of "
+            f"each one's largest entry against autograd through "
+            f"flash_forward; forward and backward {row['ms']:.2f} ms "
+            f"(autograd {row['autograd_ms']:.2f} ms)")
+        if max(row["dq"], row["dk"], row["dv"]) > FLASH_BWD_TOL:
+            failures.append(f"flash backward {row['case']}: off autograd "
+                            f"by more than {FLASH_BWD_TOL}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lm = train_lm.run([])
+    r["train_lm"] = {k: lm[k] for k in ("params", "first_loss", "last_loss",
+                                        "final_step", "recoveries",
+                                        "wall_s")}
+    r["train_lm"]["seconds"] = time.perf_counter() - t0
+    log(f"  train_lm (qwen3-4b --reduce 6, 200 steps of 8x256): "
+        f"{json.dumps(r['train_lm'])}")
+    if not lm["last_loss"] < lm["first_loss"] or lm["recoveries"]:
+        failures.append(f"train_lm: loss {lm['first_loss']:.4f} -> "
+                        f"{lm['last_loss']:.4f}, {lm['recoveries']} "
+                        f"recoveries")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    r["launches"] = counts
+    log("model training: " + json.dumps(r))
+    if any(counts.values()):
+        failures.append(f"the training path launched a kernel: {counts}")
+    if failures:  # every part above is logged before the phase fails
+        raise fail("; ".join(failures))
+    return counts
+
+
 #: the population phase's lane counts: two, and the evaluator's
 #: ``DEFAULT_EVAL_BATCH``, the most lanes one population call takes
 LANES = (2, 32)
@@ -2979,7 +3366,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="env,kernels,main,workloads,paper_repro,"
                             "case_studies,population,serve,scenarios,"
-                            "stress,model,bench",
+                            "stress,model,train,bench",
                     help="comma list of env, kernels, main (main includes "
                          "the checks and main-path shapes), workloads (the "
                          "other four workloads), paper_repro (the sweep of "
@@ -2993,7 +3380,10 @@ def main(argv=None) -> int:
                          "model (the model zoo's serving path: qwen3-4b, "
                          "deepseek-v2-lite-16b, mamba2-780m, "
                          "recurrentgemma-9b and whisper-small at full "
-                         "width and depth, prefill and decode), bench "
+                         "width and depth, prefill and decode), train "
+                         "(the zoo's training path: tinyllama-1.1b at full "
+                         "width and depth, the card against the host, the "
+                         "flash backward, train_lm), bench "
                          "(needs "
                          "kernels)")
     opts = ap.parse_args(argv)
@@ -3070,6 +3460,9 @@ def main(argv=None) -> int:
     model_launches = {}
     if "model" in phases:
         model_launches = timed("model", phase_model, torch, dev)
+    train_launches = {}
+    if "train" in phases:
+        train_launches = timed("train", phase_train, torch, dev)
     if "bench" in phases:
         entries += timed("bench", phase_bench, torch, dev, kernel_rows)
     for e in entries:  # the other workloads' paths, beside the main one
@@ -3081,6 +3474,7 @@ def main(argv=None) -> int:
         e["scenario_launches"] = scenario_launches.get(e["name"])
         e["stress_launches"] = stress_launches.get(e["name"])
         e["model_launches"] = model_launches.get(e["name"])
+        e["train_launches"] = train_launches.get(e["name"])
         e["case_studies_launches"] = {c: n[e["name"]]
                                       for c, n in case_launches.items()}
         e["population_launches"] = population["population_launches"].get(

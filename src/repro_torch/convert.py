@@ -3,8 +3,9 @@ signatures and workload params.  The proxy system itself has no weights;
 both packages compute on the same proxy JSON and the same numpy arrays.
 The AI workloads' params differ only in layout: the reference keeps conv
 kernels HWIO, the port OIHW (dense matrices are ``(din, dout)`` in both).
-The model zoo's params and caches keep the reference's keys, shapes and
-dtypes.
+The model zoo's params and caches, and a train state (params, AdamW
+moments and step, compression residuals), keep the reference's keys,
+shapes and dtypes.
 Nothing here imports the JAX package: proxies arrive as JSON text,
 arrays and params as numpy, signatures as plain field dictionaries.
 """
@@ -38,7 +39,7 @@ def proxy_from_reference_json(text: str) -> ProxyBenchmark:
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(a.shape)  # a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret bits
         return torch.from_numpy(a.view(np.uint16).copy()).view(
             torch.bfloat16).to(device)
@@ -80,6 +81,24 @@ def model_params_from_reference(tree: Mapping[str, Any],
     """A reference zoo model's params, or a cache tree, as a nested dict of
     numpy arrays (``jax.tree.map(np.asarray, tree)``) -> the port's tree on
     ``device``: the same keys, shapes and dtypes, bfloat16 included."""
+    return tensors_from_numpy(dict(tree), device)
+
+
+def train_state_from_reference(tree: Mapping[str, Any],
+                               device: DeviceLike = None) -> Dict[str, Any]:
+    """A reference ``TrainState`` as numpy (``jax.tree.map(np.asarray,
+    state)``: ``params``, ``opt`` with ``m``, ``v`` and the 0-d int32
+    ``step``, and ``comp`` when it compresses) -> the port's state on
+    ``device``, every leaf's dtype kept, so both packages can take the
+    same step from the same state."""
+    extra = set(tree) - {"params", "opt", "comp"}
+    if extra or set(tree.get("opt", {})) != {"m", "v", "step"}:
+        raise ValueError(f"not a reference TrainState: keys {sorted(tree)}, "
+                         f"opt {sorted(tree.get('opt', {}))}")
+    step = np.asarray(tree["opt"]["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt.step must be a 0-d int32, not {step.dtype} "
+                         f"{step.shape}")
     return tensors_from_numpy(dict(tree), device)
 
 

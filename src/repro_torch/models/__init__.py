@@ -6,6 +6,7 @@ from repro_torch.models.model_zoo import (  # noqa: F401
     EncDecModel,
     Model,
     build_model,
+    cross_entropy,
     input_specs,
     make_inputs,
 )

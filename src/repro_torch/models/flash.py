@@ -1,5 +1,6 @@
-"""Chunked online-softmax attention, the forward pass (port of
-``repro/models/flash.py``'s ``fwd_impl``).
+"""Chunked online-softmax attention, forward and backward (port of
+``repro/models/flash.py``: ``fwd_impl``, ``bwd_impl`` and the custom VJP
+that joins them).
 
 Queries run in chunks of ``q_chunk`` rows, each against a band of
 ``kv_chunk``-row key blocks, with the softmax statistics (running max,
@@ -19,8 +20,18 @@ grouping query heads: ``(B, S, Hkv, G, D)``.
 This is plain PyTorch and no library attention: the zoo keeps its own
 attention, as the reference's does.  The band and block loops are Python
 loops over static block indices, so a call reads nothing back from the
-device.  The backward pass (the reference's ``bwd_impl``) comes with
-training, as a ``torch.autograd.Function`` around :func:`flash_forward`.
+device.
+
+The backward pass (:func:`flash_backward`, the reference's ``bwd_impl``)
+recomputes the scores block by block from the saved lse, so no (Sq, Skv)
+tensor outlives a block: ``D = rowsum(dout * out)`` in f32, then for each
+visible block ``dv += p^T dout``, ``dp = dout v^T``, ``ds = p (dp - D)``
+(times softcap's ``1 - tanh^2``), ``dq += ds k`` and ``dk += ds^T q``
+with ``ds`` cast to the key's dtype, the GQA group axis summed into
+``dk``/``dv``, and ``dq``, ``dk`` scaled once at the end.
+:func:`flash_attention` runs the forward and this backward through one
+``torch.autograd.Function`` (the reference's ``custom_vjp``), which
+saves ``(q, k, v, out, lse)`` and nothing else.
 """
 from __future__ import annotations
 
@@ -128,6 +139,91 @@ def flash_forward(
     return out[:, :Sq].to(q.dtype), torch.stack(lses)
 
 
+def flash_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset: int = 0,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+    p_bf16: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_forward`'s ``out`` for the
+    cotangent ``dout``, from the forward's inputs, ``out`` and ``lse``,
+    each in its input's dtype (the reference's ``bwd_impl``)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Skv)
+    nq, nk, use_band, nband = _band_params(Sq, Skv, qc, kc, window, causal)
+    pq, pk = nq * qc - Sq, nk * kc - Skv
+    qr = _pad_seq(q, pq).reshape(B, nq, qc, Hkv, G, D)
+    dor = _pad_seq(dout, pq).reshape(B, nq, qc, Hkv, G, D)
+    our = _pad_seq(out, pq).reshape(B, nq, qc, Hkv, G, D)
+    kr = _pad_seq(k, pk).reshape(B, nk, kc, Hkv, D)
+    vr = _pad_seq(v, pk).reshape(B, nk, kc, Hkv, D)
+    # D_i = rowsum(dout * out), f32: (B, nq, qc, Hkv, G)
+    Dr = (dor.to(f32) * our.to(f32)).sum(dim=-1)
+    dev = q.device
+    dk_all = torch.zeros((B, nk, kc, Hkv, D), dtype=f32, device=dev)
+    dv_all = torch.zeros((B, nk, kc, Hkv, D), dtype=f32, device=dev)
+    dqs = []
+    for qi in range(nq):
+        qb = qr[:, qi].to(f32)                                 # (B,qc,Hkv,G,D)
+        dob = dor[:, qi].to(f32)
+        Db = Dr[:, qi].permute(0, 2, 3, 1)                     # (B,Hkv,G,qc)
+        lse_b = lse[qi]                                        # (B,Hkv,G,qc)
+        q_idx = q_offset + qi * qc + torch.arange(qc, device=dev)
+        start = _block_start(qi, qc, kc, nk, nband, use_band, window,
+                             q_offset)
+        dq_acc = torch.zeros((B, qc, Hkv, G, D), dtype=f32, device=dev)
+        for j in range(nband):
+            kj = start + j
+            kb, vb = kr[:, kj], vr[:, kj]
+            k_idx = kj * kc + torch.arange(kc, device=dev)
+            s_raw = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb.to(f32)) * scale
+            s = (softcap * torch.tanh(s_raw / softcap) if softcap is not None
+                 else s_raw)
+            s = s + _bias_2d(q_idx, k_idx, Skv, causal, window)
+            p = torch.exp(s - lse_b[..., None])                # (B,h,g,qc,kc)
+            if p_bf16:
+                p = p.to(torch.bfloat16)
+            pc = p.to(vb.dtype).to(f32)
+            dv_all[:, kj] += torch.einsum("bhgqk,bqhgd->bkhd", pc, dob)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb.to(f32))
+            ds = p.to(f32) * (dp - Db[..., None])
+            if softcap is not None:
+                ds = ds * (1.0 - torch.square(torch.tanh(s_raw / softcap)))
+            dsc = ds.to(kb.dtype).to(f32)
+            dq_acc += torch.einsum("bhgqk,bkhd->bqhgd", dsc, kb.to(f32))
+            dk_all[:, kj] += torch.einsum("bhgqk,bqhgd->bkhd", dsc, qb)
+        dqs.append(dq_acc * scale)
+    dq = torch.stack(dqs, dim=1).reshape(B, nq * qc, Hq, D)
+    dk = (dk_all * scale).reshape(B, nk * kc, Hkv, D)[:, :Skv]
+    dv = dv_all.reshape(B, nk * kc, Hkv, D)[:, :Skv]
+    return dq[:, :Sq].to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_forward` with :func:`flash_backward` as its gradient;
+    saves ``(q, k, v, out, lse)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        out, lse = flash_forward(q, k, v, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_backward(q, k, v, out, lse, dout, **ctx.opts), None)
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True,
@@ -139,7 +235,8 @@ def flash_attention(
     p_bf16: bool = False,
 ) -> torch.Tensor:
     """Attention of ``q`` (B, Sq, Hq, D) over ``k``, ``v`` (B, Skv, Hkv,
-    D); the reference's ``flash_attention`` forward."""
-    return flash_forward(q, k, v, causal=causal, window=window,
-                         softcap=softcap, q_offset=q_offset, q_chunk=q_chunk,
-                         kv_chunk=kv_chunk, p_bf16=p_bf16)[0]
+    D), differentiable through :func:`flash_backward` (the reference's
+    ``flash_attention`` with its custom VJP)."""
+    return _FlashAttention.apply(q, k, v, dict(
+        causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+        q_chunk=q_chunk, kv_chunk=kv_chunk, p_bf16=p_bf16))

@@ -802,15 +802,23 @@ def embed_meta(cfg: ModelConfig) -> Dict[str, Any]:
 def embed_apply(p, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows of the table for ``tokens``, in the compute dtype: the rows of
-    the cast table, gathered before the cast (the same values)."""
+    the cast table, gathered before a narrowing cast (the same values, and
+    no cast of the whole table), after a widening one (so the backward
+    pass sums a row's gradients in the wider dtype, as the reference's
+    scatter-add does)."""
     dt = torch_dtype(cfg.dtype)
-    x = F.embedding(tokens, p["tokens"]).to(dt)
+
+    def rows(table, ids):
+        wide = torch.promote_types(table.dtype, dt)
+        return F.embedding(ids, table.to(wide)).to(dt)
+
+    x = rows(p["tokens"], tokens)
     if cfg.embedding_scale:
         # sqrt(d_model) rounded to the dtype, as the reference's factor is
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=dt,
                            device=x.device)
     if cfg.learned_pos_embed and positions is not None:
-        x = x + F.embedding(positions, p["pos"]).to(dt)
+        x = x + rows(p["pos"], positions)
     return shard(x, "batch", "seq", "embed")
 
 

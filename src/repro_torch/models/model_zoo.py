@@ -1,5 +1,5 @@
 """Public model API of the port: build_model(config) -> Model (port of
-``repro/models/model_zoo.py``'s serving half).
+``repro/models/model_zoo.py``).
 
 A Model (and the encoder-decoder :class:`EncDecModel`) exposes, as the
 reference's does:
@@ -9,6 +9,8 @@ reference's does:
 * ``init(generator, device=)`` — materialised params,
 * ``forward(params, batch)`` — teacher-forced logits and the MoE layers'
   summed auxiliary loss (0 without MoE),
+* ``loss(params, batch)`` — the masked token cross-entropy plus that
+  auxiliary loss, and metrics (``ce``, ``aux``, ``tokens``),
 * ``prefill(params, batch)`` — (last-token logits, caches),
 * ``decode(params, caches, batch)`` — (logits, caches); batch carries
   ``tokens`` (B, 1) and ``index`` (a 0-d integer tensor on the model's
@@ -21,12 +23,13 @@ reference's does:
 MoE decoders (GQA or multi-head latent attention; dense or MoE
 feed-forward layers), Mamba-2 and the RG-LRU hybrid through the trunk,
 and Whisper as an :class:`EncDecModel` (its batches carry ``frames``, the
-stubbed frontend's embeddings).  ``cross_entropy`` and ``loss`` come with
-training.
+stubbed frontend's embeddings).  ``forward``, ``loss`` and ``prefill``
+take ``remat``: each layer is recomputed in the backward pass
+(``trunk.trunk_apply``, ``whisper.encode``/``decode_stack``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +41,29 @@ from repro_torch.models import trunk, whisper
 from repro_torch.models.params import abstract_params, init_params, tree_map
 
 f32 = torch.float32
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  impl: str = "gather") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked token cross-entropy in f32: (mean over the labels >= 0,
+    their count clamped at 1).  Labels < 0 are ignored.  ``impl="onehot"``
+    takes the gold logit by a masked reduction over the vocabulary
+    instead of a gather, as the reference's does (its vocab-sharded
+    form)."""
+    logits = logits.to(f32)
+    mask = (labels >= 0).to(f32)
+    safe = torch.clamp(labels, min=0).to(torch.int64)
+    logz = torch.logsumexp(logits, dim=-1)
+    if impl == "onehot":
+        v_iota = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(v_iota == safe[..., None], logits,
+                           torch.zeros((), dtype=f32, device=logits.device)
+                           ).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return nll.sum() / denom, denom
 
 
 class Model:
@@ -82,27 +108,36 @@ class Model:
             pos_ids = torch.arange(x.shape[1], device=tokens.device)[None] + start
         return x, pos_ids
 
-    # -- forward ----------------------------------------------------------------
-    def forward(self, params, batch):
+    # -- forward / loss -------------------------------------------------------
+    def forward(self, params, batch, *, remat: bool = False):
         """(logits (B, S, V) f32 over the text positions, the MoE layers'
         summed aux loss)."""
         cfg = self.cfg
         x, positions = self._embed_inputs(params, batch)
         x, _, aux = trunk.trunk_apply(params["trunk"], cfg, x,
-                                      positions=positions)
+                                      positions=positions, remat=remat)
         x = L.norm_apply(params["final_norm"], cfg, x)
         if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
             x = x[:, batch["patch_embeds"].shape[1]:]  # text positions only
         logits = L.unembed_apply(params["embed"], cfg, x)
         return logits, aux
 
+    def loss(self, params, batch, *, remat: bool = True):
+        """(cross-entropy of ``batch["labels"]`` plus the aux loss, {"ce",
+        "aux", "tokens"}), each a 0-d f32 tensor."""
+        logits, aux = self.forward(params, batch, remat=remat)
+        ce, denom = cross_entropy(logits, batch["labels"],
+                                  impl=self.cfg.ce_impl)
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": denom}
+
     # -- serving ---------------------------------------------------------------
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, *, remat: bool = False):
         """(logits (B, 1, V) of the last position, caches of every one)."""
         cfg = self.cfg
         x, positions = self._embed_inputs(params, batch)
         x, caches, _ = trunk.trunk_apply(params["trunk"], cfg, x,
-                                         positions=positions, want_cache=True)
+                                         positions=positions, want_cache=True,
+                                         remat=remat)
         x = L.norm_apply(params["final_norm"], cfg, x[:, -1:])
         logits = L.unembed_apply(params["embed"], cfg, x)
         return logits, caches
@@ -132,19 +167,20 @@ class EncDecModel(Model):
     def cache_meta(self, batch: int, seq: int) -> Dict[str, Any]:
         return whisper.whisper_cache_meta(self.cfg, batch, seq)
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, *, remat: bool = False):
         cfg = self.cfg
-        memory = whisper.encode(params, cfg, batch["frames"])
+        memory = whisper.encode(params, cfg, batch["frames"], remat=remat)
         x, _ = whisper.decode_stack(params, cfg, batch["tokens"],
-                                    memory=memory)
+                                    memory=memory, remat=remat)
         logits = L.unembed_apply(params["embed"], cfg, x)
         return logits, torch.zeros((), dtype=f32, device=logits.device)
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, *, remat: bool = False):
         cfg = self.cfg
-        memory = whisper.encode(params, cfg, batch["frames"])
+        memory = whisper.encode(params, cfg, batch["frames"], remat=remat)
         x, caches = whisper.decode_stack(params, cfg, batch["tokens"],
-                                         memory=memory, want_cache=True)
+                                         memory=memory, want_cache=True,
+                                         remat=remat)
         logits = L.unembed_apply(params["embed"], cfg, x[:, -1:])
         return logits, caches
 

@@ -13,13 +13,17 @@ A config's layers are grouped into *segments*:
 
 The parameter and cache trees are the reference's key for key and shape
 for shape.  Where the reference runs a scanned segment with ``lax.scan``,
-the port runs a Python loop over views of the ``layers`` dim: prefill
-stacks each layer's new cache along that dim, and decode writes each
-layer's K/V (or recurrent state) into its view of the stacked cache in
-place.  The MoE layers'
-auxiliary losses are summed once, at the end (a dense block adds no
-launch for a zero loss, as XLA's fused zeros cost the reference none).
-``remat`` comes with training.
+the port runs a Python loop over the ``layers`` dim: each stacked param
+leaf is ``unbind``-ed once a segment (so a backward pass stacks the
+layers' gradients once, where a slice ``t[i]`` a layer would allocate a
+zero gradient the size of the whole stack for each), prefill stacks each
+layer's new cache along that dim, and decode writes each layer's K/V (or
+recurrent state) into its view of the stacked cache in place.  The MoE
+layers' auxiliary losses are summed once, at the end (a dense block adds
+no launch for a zero loss, as XLA's fused zeros cost the reference none).
+``remat`` recomputes each unscanned block, and each scanned layer, in the
+backward pass (``torch.utils.checkpoint``, where the reference wraps them
+in ``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -27,11 +31,12 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, rglru
-from repro_torch.models.params import stack_tree, tree_map
+from repro_torch.models.params import stack_tree, tree_leaves, tree_map
 
 f32 = torch.float32
 
@@ -203,6 +208,24 @@ def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
     return cfg.moe is not None and layer_idx >= cfg.moe.first_dense_layers
 
 
+def unstack(tree) -> List[Dict[str, Any]]:
+    """A stacked tree as one tree a layer: every leaf ``unbind``-ed along
+    its leading ``layers`` dim once."""
+    leaves = tree_map(lambda t: t.unbind(0), tree)
+    n = len(tree_leaves(leaves)[0])
+    return [tree_map(lambda ts, i=i: ts[i], leaves) for i in range(n)]
+
+
+def maybe_remat(fn, remat: bool):
+    """``fn``, recomputed in the backward pass when ``remat``
+    (``torch.utils.checkpoint``, non-reentrant; the zoo draws nothing at
+    random, so no RNG state is kept)."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
 def trunk_apply(
     params, cfg: ModelConfig, x: torch.Tensor, *,
     positions: torch.Tensor,
@@ -210,48 +233,60 @@ def trunk_apply(
     caches: Optional[Dict[str, Any]] = None,
     index: Optional[torch.Tensor] = None,
     want_cache: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """Run all segments.  Returns (x, new_caches|None, aux_loss).  Decode
     (``caches`` and ``index``) writes into ``caches``' tensors and returns
-    them."""
+    them.  ``remat`` recomputes each unscanned block and each scanned
+    layer in the backward pass."""
     segs = build_segments(cfg)
     keep_cache = want_cache or index is not None
     new_caches: Dict[str, Any] = {}
     auxs: List[torch.Tensor] = []  # the MoE layers' losses, layer by layer
 
-    def run(p_, x_, kind, c_, li):
-        return block_apply(p_, cfg, x_, kind, positions=positions,
-                           causal=causal, cache=c_, index=index,
-                           want_cache=want_cache,
-                           moe_layer=_is_moe_layer(cfg, li))
+    def run(kinds, layer_start):
+        """One layer (a scanned segment's) or one block (an unscanned
+        segment's): ``kinds`` applied in turn, ``(p_list, x, c_list)`` ->
+        ``(x, new caches, aux losses)``, each list one entry a kind."""
+        def layer(ps, x_, cs):
+            ncs, aux_l = [], []
+            for j, kind in enumerate(kinds):
+                x_, nc, aux = block_apply(
+                    ps[j], cfg, x_, kind, positions=positions,
+                    causal=causal, cache=None if cs is None else cs[j],
+                    index=index, want_cache=want_cache,
+                    moe_layer=_is_moe_layer(cfg, layer_start + j))
+                ncs.append(nc)
+                aux_l += [aux] if aux is not None else []
+            return x_, ncs, aux_l
+        return maybe_remat(layer, remat)
 
     for si, seg in enumerate(segs):
         seg_p = params[f"seg{si}"]
         seg_c = caches[f"seg{si}"] if caches is not None else None
+        keys = [f"p{j}" for j in range(len(seg.kinds))]
 
         if not seg.scanned:
             entry_caches = {}
-            for j, kind in enumerate(seg.kinds):
-                cj = seg_c[f"p{j}"] if seg_c is not None else None
-                x, entry_caches[f"p{j}"], aux = run(
-                    seg_p[f"p{j}"], x, kind, cj, seg.layer_start + j)
-                auxs += [aux] if aux is not None else []
+            for j, (key, kind) in enumerate(zip(keys, seg.kinds)):
+                x, (entry_caches[key],), aux = run(
+                    (kind,), seg.layer_start + j)(
+                        [seg_p[key]], x,
+                        None if seg_c is None else [seg_c[key]])
+                auxs += aux
             if keep_cache:
                 new_caches[f"seg{si}"] = entry_caches
             continue
 
-        # scanned segment: layer i is slice i of every stacked leaf --------
+        # scanned segment: layer i is entry i of every unbound leaf -------
+        layer = run(seg.kinds, seg.layer_start)
         per_layer: List[Dict[str, Any]] = []
-        for i in range(seg.count):
-            ncs = {}
-            for j, kind in enumerate(seg.kinds):
-                p_ij = tree_map(lambda t: t[i], seg_p[f"p{j}"])
-                c_ij = (tree_map(lambda t: t[i], seg_c[f"p{j}"])
-                        if seg_c is not None else None)
-                x, ncs[f"p{j}"], aux = run(p_ij, x, kind, c_ij,
-                                           seg.layer_start + j)
-                auxs += [aux] if aux is not None else []
-            per_layer.append(ncs)
+        for i, p_i in enumerate(unstack(seg_p)):
+            c_i = (None if seg_c is None
+                   else [tree_map(lambda t: t[i], seg_c[k]) for k in keys])
+            x, ncs, aux = layer([p_i[k] for k in keys], x, c_i)
+            auxs += aux
+            per_layer.append(dict(zip(keys, ncs)))
         if seg_c is not None and index is not None:
             new_caches[f"seg{si}"] = seg_c  # written in place, slice by slice
         elif keep_cache:

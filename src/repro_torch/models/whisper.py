@@ -7,10 +7,13 @@ time-downsampled (``cfg.encoder_downsample``).  Everything downstream —
 encoder stack, decoder with cross attention, KV caches — is real.
 
 Where the reference runs a stack with ``lax.scan``, the port runs a
-Python loop over views of the stacked ``layers`` dim, as the trunk does.
-Decode writes the new token's self-attention K/V into its view of the
-stacked cache in place and returns the caches it was given; the cross
-K/V, computed once by the prefill, are read as they are.
+Python loop over the stacked ``layers`` dim, as the trunk does: each
+param leaf is ``unbind``-ed once a stack (``trunk.unstack``), and
+``remat`` recomputes each layer in the backward pass, where the
+reference wraps the scan's body in ``jax.checkpoint``.  Decode writes
+the new token's self-attention K/V into its view of the stacked cache in
+place and returns the caches it was given; the cross K/V, computed once
+by the prefill, are read as they are.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.data.generators import torch_dtype
 from repro_torch.distributed import shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import meta, stack_tree, tree_map
+from repro_torch.models.trunk import maybe_remat, unstack
 
 
 # ---------------------------------------------------------------------------
@@ -82,25 +86,31 @@ def whisper_cache_meta(cfg: ModelConfig, batch: int,
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree: views of slice ``i`` of each leaf."""
+    """Layer ``i`` of a stacked cache tree: views of slice ``i`` of each
+    leaf (decode writes into them)."""
     return tree_map(lambda t: t[i], tree)
 
 
-def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def encode(params, cfg: ModelConfig, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, d) stub embeddings -> encoder memory."""
     dt = torch_dtype(cfg.dtype)
     S = frames.shape[1]
     x = frames.to(dt) + params["enc_pos"][:S].to(dt)[None]
     x = shard(x, "batch", "seq", "embed")
     positions = torch.arange(S, device=frames.device)[None]
-    for i in range(cfg.encoder_layers):
-        p = _layer(params["encoder"], i)
+
+    def body(p, x):
         h = L.norm_apply(p["norm1"], cfg, x)
         a, _ = L.attn_apply(p["attn"], cfg, h, positions=positions,
                             causal=False)
         x = x + a
         h = L.norm_apply(p["norm2"], cfg, x)
-        x = x + L.mlp_apply(p["ffn"], cfg, h)
+        return x + L.mlp_apply(p["ffn"], cfg, h)
+
+    body = maybe_remat(body, remat)
+    for p in unstack(params["encoder"]):
+        x = body(p, x)
     return L.norm_apply(params["enc_norm"], cfg, x)
 
 
@@ -110,11 +120,13 @@ def decode_stack(
     caches: Optional[Dict[str, Any]] = None,
     index: Optional[torch.Tensor] = None,
     want_cache: bool = False,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Decoder pass.  Train/prefill: ``memory`` given (the prefill, with
     ``want_cache``, returns new caches).  Decode: ``caches`` and ``index``
     given (a 0-d tensor); the new token's K/V are written into
-    ``caches``, which are returned."""
+    ``caches``, which are returned.  ``remat`` recomputes each layer in
+    the backward pass."""
     dt = torch_dtype(cfg.dtype)
     B, S = tokens.shape
     pos_ids = torch.arange(S, device=tokens.device)[None] + (
@@ -122,11 +134,8 @@ def decode_stack(
     x = L.embed_apply(params["embed"], cfg, tokens, positions=pos_ids)
     decoding = caches is not None and index is not None
     keep = want_cache or index is not None
-    per_layer: List[Dict[str, Any]] = []
 
-    for i in range(cfg.num_layers):
-        p = _layer(params["decoder"], i)
-        c = _layer(caches, i) if caches is not None else None
+    def body(p, x, c):
         h = L.norm_apply(p["norm1"], cfg, x)
         a, self_c = L.attn_apply(
             p["self_attn"], cfg, h, positions=pos_ids, causal=True,
@@ -143,7 +152,13 @@ def decode_stack(
         x = x + L.cross_attn_apply(p["cross_attn"], cfg, h, mem_kv)
         h = L.norm_apply(p["norm3"], cfg, x)
         x = x + L.mlp_apply(p["ffn"], cfg, h)
-        per_layer.append({"self": self_c, "cross": cross_c})
+        return x, {"self": self_c, "cross": cross_c}
+
+    body = maybe_remat(body, remat)
+    per_layer: List[Dict[str, Any]] = []
+    for i, p in enumerate(unstack(params["decoder"])):
+        x, c = body(p, x, _layer(caches, i) if caches is not None else None)
+        per_layer.append(c)
 
     x = L.norm_apply(params["dec_norm"], cfg, x)
     if not keep:

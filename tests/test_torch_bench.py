@@ -128,6 +128,12 @@ def test_the_port_imports_nothing_of_jax_or_the_reference():
         "models/flash", "models/layers", "models/trunk", "models/model_zoo",
         "models/mamba2", "models/rglru", "models/whisper",
         "runtime/serve_loop")} <= scanned
+    # and the training path's
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "optim/__init__", "optim/adamw", "optim/compression",
+        "optim/schedules", "data/__init__", "data/pipeline",
+        "runtime/train_loop", "launch/__init__", "launch/mesh",
+        "launch/train", "bench/train_lm", "convert")} <= scanned
     assert len([f for f in scanned
                 if f.startswith("src/repro_torch/configs/")]) == 12
     bad = [f"{f.relative_to(ROOT)}:{line} imports {root}"

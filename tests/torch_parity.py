@@ -488,3 +488,52 @@ def serve_teacher_forced(rm, rp, m, p, *, batch: int, prompt: int,
         "tokens": jnp.asarray(seq),
         **{k: jnp.asarray(v) for k, v in extra.items()}})
     return got, as_np(want)[:, prompt - 1:], prefilled, padded
+
+
+# ---------------------------------------------------------------------------
+# training: one batch in both packages, the loss and its gradients
+# ---------------------------------------------------------------------------
+
+
+def zoo_train_batch(cfg, seed: int, batch: int, seq: int,
+                    ignored: int = 3) -> dict:
+    """A numpy training batch for ``cfg``: ``tokens`` and ``labels`` (B,
+    seq) int32 uniform over the vocabulary, the first ``ignored`` labels
+    of row 0 set to -1 (masked), and the config's extra inputs
+    (:func:`extra_inputs`)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    labels[0, :ignored] = -1
+    return {"tokens": toks, "labels": labels,
+            **extra_inputs(cfg, rng, batch, seq)}
+
+
+def ref_loss_and_grads(rm, rp, batch: dict, remat: bool = False):
+    """The reference's jitted ``value_and_grad`` of ``Model.loss``:
+    (loss, metrics, grads as a flat dict of numpy arrays)."""
+    import jax
+    import jax.numpy as jnp
+
+    fn = jax.jit(jax.value_and_grad(
+        lambda p_, b_: rm.loss(p_, b_, remat=remat), has_aux=True))
+    (loss, metrics), grads = fn(rp, {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+    return (float(loss), {k: float(v) for k, v in metrics.items()},
+            flat(jax_tree_to_numpy(grads)))
+
+
+def port_loss_and_grads(m, p, batch: dict, remat: bool = True):
+    """The port's ``Model.loss`` and ``torch.autograd.grad`` over every
+    param leaf: (loss, metrics, grads as a flat dict of tensors)."""
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), p)
+    loss, metrics = m.loss(leaves, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()}, remat=remat)
+    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+    # tree_map's dicts list their keys sorted: flat() walks them in the
+    # order of tree_leaves
+    return (float(loss), {k: float(v) for k, v in metrics.items()},
+            dict(zip(flat(leaves), grads)))
