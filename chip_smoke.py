@@ -208,6 +208,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``launch.train``, ``FaultTolerantRunner`` and ``CheckpointManager``:
    the last loss below the first, 0 recoveries.  Fails if any of the six
    kernels launched;
+6k. pod: the dry run and data-parallel training (``repro_torch.launch.
+   dryrun``, ``launch.train`` over ranks).  (a) ``launch.train.train``
+   at ``bench/train_lm``'s configuration (qwen3-4b reduced 6 x,
+   24,511,266 params, 8 x 256 tokens) for 20 steps in f32 over 4 gloo
+   ranks sharing the card, at meshes (4, 1) and (2, 2), the two groups
+   at once: each rank's losses and rank 0's gathered final params
+   within ``POD_TOL`` of one rank's run of the same steps on the card;
+   logs the step ms, the collective bytes of a profiled step and each
+   rank's memory peak.  (b), as subprocesses beside (c): one rank of a
+   fake world of 256 (512) ranks on meta tensors, no card and no
+   memory: qwen3-4b's ``train_4k``, ``prefill_32k`` and ``decode_32k``
+   and deepseek-v2-lite-16b's ``train_4k`` on (16, 16), and qwen3-4b's
+   ``train_4k`` on (2, 16, 16): each record's flops and bytes a device,
+   collective bytes by kind, peak, ``fits_hbm``, dominant term and useful
+   flops fraction, and its walls; an error or a missing cell fails.  (c)
+   ``bench/proxy_for_pod_model --arch qwen3-4b --substrate hopper
+   --iters 12`` with every counter zeroed just before and read just
+   after: fails if ``matmul`` never launched.  (d) the roofline section
+   of ``bench/run`` over (b)'s records;
 7. bench: the kernel entry point's path, with every launch counter
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
@@ -230,7 +249,8 @@ as ``serve_launches``, its launches over each case of phase 6e as
 rank of each run of phase 6g as ``scenario_launches``, its launches on
 each rank of phase 6h (a) as ``stress_launches``, its launches over
 phase 6i as ``model_launches``, its launches over phase 6j as
-``train_launches``, and, for the first three, its launches over
+``train_launches``, its launches over phase 6k (c) as ``pod_launches``,
+and, for the first three, its launches over
 one call a chunk of phase 6f (b) as ``population_launches`` and its
 phase 6f (a) rows as ``lane_forms``), the
 card's name and power limit, and
@@ -3086,6 +3106,224 @@ def phase_train(torch, dev) -> dict:
     return counts
 
 
+#: phase 6k (a): data-parallel training at ``bench/train_lm``'s
+#: configuration (qwen3-4b reduced 6 x, 8 x 256 tokens, lr 1e-3), 20
+#: steps in f32 compute (TF32 off), over ``POD_RANKS`` gloo ranks sharing
+#: the card at model axis 1 and 2 (meshes (4, 1) and (2, 2)), each held
+#: to one rank's run of the same steps on the card; checkpoints only the
+#: runner's step-0 anchor and its final save (each a gather of the whole
+#: state through the host), for time
+POD_ARCH = "qwen3-4b"
+POD_TRAIN = dict(steps=20, batch=8, seq=256, reduce=6, lr=1e-3,
+                 ckpt_every=0, dtype="float32", log_every=0)
+POD_PARAMS = 24_511_266
+POD_RANKS = 4
+POD_MODEL_AXES = (1, 2)
+POD_TOL = dict(rtol=1e-4, atol=1e-4)
+POD_TIMEOUT = 300
+#: phase 6k (b): the dry-run runs, (arch, shape, multi-pod), each a
+#: subprocess, beside (a) and (c)
+POD_DRYRUNS = (("qwen3-4b", "train_4k", False),
+               ("qwen3-4b", "prefill_32k", False),
+               ("qwen3-4b", "decode_32k", False),
+               ("deepseek-v2-lite-16b", "train_4k", False),
+               ("qwen3-4b", "train_4k", True))
+#: the cells (b) must record without an error
+POD_CELLS = {("qwen3-4b", "train_4k", "16x16"),
+             ("qwen3-4b", "prefill_32k", "16x16"),
+             ("qwen3-4b", "decode_32k", "16x16"),
+             ("deepseek-v2-lite-16b", "train_4k", "16x16"),
+             ("qwen3-4b", "train_4k", "2x16x16")}
+#: phase 6k (c): the pod proxy's tuning iterations (the reference's)
+POD_PROXY_ITERS = 12
+
+
+def pod_train(torch, dev, work: Path) -> dict:
+    """Phase 6k (a): ``launch.train.train`` over ``POD_RANKS`` ranks at
+    each model axis (two groups at once, eight ranks sharing the card)
+    against one rank on the card.  Returns the logged figures; failures
+    are listed under ``failures``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch.distributed.launch import spawn
+    from repro_torch.launch.train import rank_train, train
+    from repro_torch.models.params import tree_leaves
+
+    out = {"failures": []}
+    t0 = time.perf_counter()
+    one = train(POD_ARCH, device=dev, ckpt_dir=str(work / "pod_one"),
+                **POD_TRAIN)
+    want = [x.cpu().numpy() for x in tree_leaves(one.pop("state")["params"])]
+    out["one_rank"] = {"seconds": time.perf_counter() - t0,
+                       "params": one["params"],
+                       "step_ms": 1e3 * float(np.median(one["step_s"][1:])),
+                       "peak_gb": one["peak_allocated_bytes"] / 1e9,
+                       "losses": [round(x, 5) for x in one["losses"]]}
+    log(f"  one rank: {json.dumps(out['one_rank'])}")
+    if one["params"] != POD_PARAMS:
+        out["failures"].append(f"{one['params']} params, not {POD_PARAMS}")
+    torch.cuda.empty_cache()
+
+    def group(axis):
+        t0 = time.perf_counter()
+        ranks = spawn(rank_train, POD_RANKS, POD_ARCH,
+                      dict(POD_TRAIN, device="cuda", model_axis=axis,
+                           ckpt_dir=str(work / f"pod_dp{axis}"),
+                           profile_step=POD_TRAIN["steps"] - 1),
+                      True, device_type="cuda", timeout_s=POD_TIMEOUT)
+        return ranks, time.perf_counter() - t0
+
+    # the meshes' groups run at once, each its own ranks sharing the card
+    with ThreadPoolExecutor(len(POD_MODEL_AXES)) as pool:
+        groups = dict(zip(POD_MODEL_AXES, pool.map(group, POD_MODEL_AXES)))
+    for axis, (ranks, seconds) in groups.items():
+        mesh = f"({POD_RANKS // axis}, {axis})"
+        loss_err = max(float(np.max(np.abs(np.asarray(r["losses"])
+                                           - np.asarray(one["losses"]))))
+                       for r in ranks)
+        got = ranks[0]["params_whole"]
+        param_err = max(float(np.max(np.abs(g - w)))
+                        for g, w in zip(got, want))
+        bad = [r for r, x in enumerate(ranks) if not np.allclose(
+            x["losses"], one["losses"], **POD_TOL)]
+        if len(got) != len(want) or not all(
+                np.allclose(g, w, **POD_TOL) for g, w in zip(got, want)):
+            bad.append("params")
+        row = {"mesh": mesh, "seconds": seconds,
+               "loss_max_abs_err": loss_err,
+               "param_max_abs_err": param_err,
+               "step_ms": [1e3 * float(np.median(r["step_s"][1:-1]))
+                           for r in ranks],
+               "collective_bytes_a_step": ranks[0]["step_collective_bytes"],
+               "peak_gb": [r["peak_allocated_bytes"] / 1e9 for r in ranks],
+               "replicated_ops": ranks[0]["replicated_ops"]}
+        out[f"mesh_{axis}"] = row
+        log(f"  {POD_RANKS} ranks at mesh {mesh}: {json.dumps(row)}")
+        if bad:
+            out["failures"].append(
+                f"mesh {mesh}: {bad} differ from one rank beyond {POD_TOL} "
+                f"(losses {loss_err:.3g}, params {param_err:.3g})")
+    return out
+
+
+def pod_dryruns(work: Path) -> list:
+    """Phase 6k (b): start every ``POD_DRYRUNS`` run as a subprocess (one
+    rank of a fake world: no card, no memory); returns ``[(label, Popen,
+    out path, log path, start)]``, ``start`` on the wall clock."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    runs = []
+    for arch, shape, multi in POD_DRYRUNS:
+        label = f"{arch}_{shape}{'_multi_pod' if multi else ''}"
+        out, logf = work / f"dry_{label}.json", work / f"dry_{label}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)] + (
+                   ["--multi-pod"] if multi else [])
+        with open(logf, "w") as f:
+            proc = subprocess.Popen(cmd, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT)
+        runs.append((label, proc, out, logf, time.time()))
+    return runs
+
+
+def phase_pod(torch, dev) -> dict:
+    """Phase 6k, the dry run and data-parallel training.  (b)'s dry runs
+    start first, in subprocesses beside (a) and (c).  (a)
+    ``pod_train``, the two meshes' groups at once: each rank's losses and
+    rank 0's gathered final params within ``POD_TOL`` of one rank's; logs
+    the step ms, the collective bytes of a step, each rank's memory peak
+    and the ops run replicated.  (b) the dry
+    run of ``POD_CELLS`` on the
+    production meshes: logs each record's flops and bytes a device,
+    collective bytes by kind and the operands that moved the most, peak
+    GB, ``fits_hbm``, the dominant term, ``useful_flops_fraction``, the
+    torch that ran and the walls; fails on an error or a
+    missing cell.  (c) ``bench/proxy_for_pod_model --arch qwen3-4b
+    --substrate hopper --iters 12`` with the launch counters zeroed just
+    before and read just after; fails if ``matmul`` never launched.  (d)
+    the roofline section of ``bench/run`` over (b)'s records, both
+    meshes.  Returns (c)'s ``{kernel: launches}``."""
+    from repro_torch.bench import proxy_for_pod_model
+    from repro_torch.bench import run as bench_run
+    from repro_torch.kernels import ops
+
+    failures = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as work:
+        work = Path(work)
+        runs = pod_dryruns(work)
+        try:
+            failures += pod_train(torch, dev, work)["failures"]
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rc = proxy_for_pod_model.main(["--arch", POD_ARCH, "--substrate",
+                                           "hopper", "--iters",
+                                           str(POD_PROXY_ITERS)])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            log(f"  pod proxy: exit {rc}, {time.perf_counter() - t0:.1f} s, "
+                f"launches {json.dumps(counts)}")
+            if rc != 0 or not counts.get("matmul"):
+                failures.append(f"pod proxy: exit {rc}, matmul launched "
+                                f"{counts.get('matmul')} times")
+        finally:
+            records = []
+            for label, proc, out, logf, start in runs:
+                try:
+                    rc = proc.wait(timeout=POD_TIMEOUT)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rc = "killed"
+                log(f"  dry run {label}: exit {rc}, "
+                    f"{logf.stat().st_mtime - start:.1f} s (its log's last "
+                    f"write); its log's tail: "
+                    f"{logf.read_text()[-1500:]!r}")
+                if out.exists():
+                    records += json.loads(out.read_text())
+                if rc != 0:
+                    failures.append(f"dry run {label} exited {rc}")
+
+        seen = set()
+        for r in records:
+            if "error" in r:
+                failures.append(f"dry run {r['arch']} x {r['shape']}: "
+                                f"{r['error'][:200]}")
+                continue
+            if r.get("skipped"):
+                log(f"  dry run {r['arch']} x {r['shape']}: skipped "
+                    f"({r['skipped'][:60]})")
+                continue
+            seen.add((r["arch"], r["shape"], r["mesh"]))
+            log(f"  dry run {r['arch']} x {r['shape']} on {r['mesh']} "
+                f"({r['devices']} ranks): flops/device "
+                f"{r['flops_per_device']:.4g}, bytes/device "
+                f"{r['bytes_per_device']:.4g}, collective bytes "
+                f"{json.dumps(r['collective_bytes'])}, peak "
+                f"{r['peak_memory_bytes'] / 1e9:.2f} GB, fits_hbm "
+                f"{r['fits_hbm']}, dominant {r['dominant']} (compute "
+                f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+                f"collective {r['collective_s']:.4g} s), useful flops "
+                f"{r['useful_flops_fraction']:.3f}; ops run whole "
+                f"{json.dumps(r.get('replicated_ops'))}; torch "
+                f"{r['torch']}; top collectives "
+                f"{json.dumps(r['top_collectives'])}; build "
+                f"{r['lower_s']} s, profiled dispatch {r['compile_s']} s")
+        if POD_CELLS - seen:
+            failures.append(f"dry run cells missing: {sorted(POD_CELLS - seen)}")
+
+        path = work / "dryrun_pod.json"
+        path.write_text(json.dumps(records))
+        for mesh in ("16x16", "2x16x16"):
+            if bench_run.roofline_section(str(path), mesh=mesh) != 0:
+                failures.append(f"roofline section on {mesh} failed")
+    if failures:  # every part above is logged before the phase fails
+        raise fail("; ".join(failures))
+    return counts
+
+
 #: the population phase's lane counts: two, and the evaluator's
 #: ``DEFAULT_EVAL_BATCH``, the most lanes one population call takes
 LANES = (2, 32)
@@ -3366,7 +3604,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="env,kernels,main,workloads,paper_repro,"
                             "case_studies,population,serve,scenarios,"
-                            "stress,model,train,bench",
+                            "stress,model,train,pod,bench",
                     help="comma list of env, kernels, main (main includes "
                          "the checks and main-path shapes), workloads (the "
                          "other four workloads), paper_repro (the sweep of "
@@ -3383,7 +3621,10 @@ def main(argv=None) -> int:
                          "width and depth, prefill and decode), train "
                          "(the zoo's training path: tinyllama-1.1b at full "
                          "width and depth, the card against the host, the "
-                         "flash backward, train_lm), bench "
+                         "flash backward, train_lm), pod (the dry run "
+                         "on the production meshes, data-parallel "
+                         "training on ranks sharing the card, the pod "
+                         "proxy, the roofline table), bench "
                          "(needs "
                          "kernels)")
     opts = ap.parse_args(argv)
@@ -3463,6 +3704,9 @@ def main(argv=None) -> int:
     train_launches = {}
     if "train" in phases:
         train_launches = timed("train", phase_train, torch, dev)
+    pod_launches = {}
+    if "pod" in phases:
+        pod_launches = timed("pod", phase_pod, torch, dev)
     if "bench" in phases:
         entries += timed("bench", phase_bench, torch, dev, kernel_rows)
     for e in entries:  # the other workloads' paths, beside the main one
@@ -3475,6 +3719,7 @@ def main(argv=None) -> int:
         e["stress_launches"] = stress_launches.get(e["name"])
         e["model_launches"] = model_launches.get(e["name"])
         e["train_launches"] = train_launches.get(e["name"])
+        e["pod_launches"] = pod_launches.get(e["name"])
         e["case_studies_launches"] = {c: n[e["name"]]
                                       for c, n in case_launches.items()}
         e["population_launches"] = population["population_launches"].get(

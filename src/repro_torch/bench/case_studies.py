@@ -49,15 +49,19 @@ from repro_torch.core.motifs.base import SUBSTRATES
 from repro_torch.core.signature import Signature, signature_of_call
 from repro_torch.data.generators import make_generator
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import HW
 from repro_torch.workloads import WORKLOADS, kmeans
 
 #: two generations of the card the port runs on, for case study C (bf16
 #: dense peak FLOP/s, HBM bytes/s, NVLink bytes/s each way), from NVIDIA's
 #: data sheets; ``peak``/``hbm``/``ici`` are the reference's keys.  The
 #: first generation is the ratio's numerator, as the reference's v4 is.
+#: The H100's row is ``launch.mesh.HW``, the port's one table of its rates.
 HW_GENS: Dict[str, Dict[str, float]] = {
     "a100_sxm4_80gb": {"peak": 312e12, "hbm": 2.039e12, "ici": 300e9},
-    "h100_sxm5_80gb_700w": {"peak": 989e12, "hbm": 3.35e12, "ici": 450e9},
+    "h100_sxm5_80gb_700w": {"peak": HW["peak_bf16_flops"],
+                            "hbm": HW["hbm_bandwidth"],
+                            "ici": HW["ici_bandwidth"]},
 }
 
 #: the reference document's keys: each case record's, and those of each

@@ -5,25 +5,57 @@ port of ``benchmarks/run.py``.
   Table VI + Fig. 4  -> repro_torch.bench.paper_repro   (proxy speedup +
                                                           accuracy)
   Fig. 7/8/9/10      -> repro_torch.bench.case_studies  (3 case studies)
-  §Roofline          -> waits for the model zoo (ROADMAP queue 1 item 5):
-                        the reference's table reads a dry-run sweep of
-                        models the port does not have yet
+  §Roofline          -> repro_torch.bench.roofline    (from a dry-run
+                                                          sweep's records)
 
 ``python -m repro_torch.bench.run`` runs the quick versions of everything
 with the reference's arguments; the per-module CLIs expose full-size
 settings.  ``--device`` (cuda unless ``cpu`` is asked for) is passed to
-every section.  A section that raises is listed under ``failures`` and
-the run exits 1.
+every section.  The roofline section reads ``results/dryrun_all.json``
+when a full sweep wrote it, as the reference does; else it runs the dry
+run (one rank of a fake 256-rank world: no card, no memory) on the
+production mesh for the cells it can afford (:data:`ROOFLINE_CELLS`,
+about a minute on a host core) and prints their table.  A section that
+raises is listed under ``failures`` and the run exits 1.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
+from typing import Optional
 
 
 def section(title: str) -> None:
     print(f"\n{'='*72}\n== {title}\n{'='*72}", flush=True)
+
+
+#: the dry-run cells the roofline section runs when no sweep is on disk
+ROOFLINE_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "prefill_32k"),
+                  ("qwen3-4b", "decode_32k"), ("tinyllama-1.1b", "train_4k"))
+SWEEP = "results/dryrun_all.json"
+
+
+def roofline_section(records_json: Optional[str] = None,
+                     mesh: str = "16x16") -> int:
+    """Print the roofline table of ``records_json`` (default: the full
+    sweep's file when it exists, else a dry run of
+    :data:`ROOFLINE_CELLS` written to ``results/dryrun_quick.json``)."""
+    from repro_torch.bench import roofline
+
+    if records_json is None:
+        if os.path.exists(SWEEP):
+            records_json = SWEEP
+        else:
+            from repro_torch.bench._io import write_json
+            from repro_torch.launch import dryrun
+
+            records = [dryrun.run_cell(a, s, False)
+                       for a, s in ROOFLINE_CELLS]
+            records_json = "results/dryrun_quick.json"
+            write_json(records_json, records)
+    return roofline.main(["--json", records_json, "--mesh", mesh])
 
 
 def main(argv=None) -> int:
@@ -62,9 +94,11 @@ def main(argv=None) -> int:
         print(f"FAILED: {e!r}")
 
     section("roofline table (from the dry-run sweep)")
-    print("not ported yet: the roofline table reads the dry-run sweep of "
-          "the model zoo, which the port does not have yet (ROADMAP "
-          "queue 1 item 5)")
+    try:
+        roofline_section()
+    except Exception as e:  # noqa: BLE001
+        failures.append(("roofline", repr(e)))
+        print(f"FAILED: {e!r}")
 
     section(f"benchmarks done in {time.time()-t0:.0f}s; "
             f"failures={failures or 'none'}")

@@ -5,7 +5,8 @@ MLA (kv_lora=512, q_lora=1536), 1 shared + 256 routed experts top-8, MTP.
 First 3 layers dense (d_ff 18432); remaining 58 MoE, per-expert width 2048.
 MTP (multi-token prediction) is available as an optional extra head in the
 model zoo (``extra_targets``) but is disabled for the graded dry-run cells.
-grad_accum=8 keeps the per-microbatch dispatch footprint within a v5e HBM.
+grad_accum=8 (the reference config's) splits each step into 8 microbatches,
+which bounds the per-microbatch dispatch footprint.
 """
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 

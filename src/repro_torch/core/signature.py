@@ -52,18 +52,22 @@ so and why; on the CPU, which has no graphs, timing is always eager.
 """
 from __future__ import annotations
 
+import copy
+import functools
+import sys
 import threading
 import time
 import traceback
+import weakref
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.utils.flop_counter as _flop_counter
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from repro_torch.data.generators import GeneratorSupply
 from repro_torch.device import synchronize
@@ -238,6 +242,8 @@ class ProfileStats:
     op_bytes: Dict[str, float] = field(default_factory=dict)
     op_counts: Dict[str, int] = field(default_factory=dict)
     collective_bytes: Dict[str, float] = field(default_factory=dict)
+    #: collective bytes by kind and the operand's dtype and local shape
+    collective_operands: Dict[str, float] = field(default_factory=dict)
     dot_flops: float = 0.0
     conv_flops: float = 0.0
 
@@ -272,27 +278,117 @@ class ProfileStats:
             self.flops += f
         elif cls == "collective":
             kind = collective_kind(func)
+            n = in_bytes or out_bytes
             self.collective_bytes[kind] = (
-                self.collective_bytes.get(kind, 0.0) + (in_bytes or out_bytes))
+                self.collective_bytes.get(kind, 0.0) + n)
+            t = (_tensors((args, kwargs)) or outs)[0]
+            key = f"{kind} {str(t.dtype)[6:]}{list(t.shape)}"
+            self.collective_operands[key] = (
+                self.collective_operands.get(key, 0.0) + n)
         if name in _TRANSCENDENTAL:
             self.transcendentals += out_elems
+
+
+_SHAPE_INFERENCE = threading.local()
+
+
+def _mark_shape_inference() -> None:
+    """Mark the ops DTensor runs to infer an op's output shape.
+
+    DTensor derives each op's global output shape by running the op once
+    on fake tensors of the global shapes (``ShardingPropagator.
+    _propagate_tensor_meta_non_cached``, under a fake mode that sits
+    beneath every user mode).  Those runs are not the rank's work, so
+    the method is wrapped, once a process, to flag its thread while it
+    runs, and :class:`_Profiler` does not record what it dispatches
+    then.  A torch without that method is left as it is."""
+    mod = sys.modules.get("torch.distributed.tensor._sharding_prop")
+    if mod is None:
+        return
+    cls = mod.ShardingPropagator
+    fn = cls.__dict__.get("_propagate_tensor_meta_non_cached")
+    if fn is None or getattr(fn, "_marks_shape_inference", False):
+        return
+
+    @functools.wraps(fn)
+    def marked(self, *args, **kwargs):
+        _SHAPE_INFERENCE.depth = getattr(_SHAPE_INFERENCE, "depth", 0) + 1
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            _SHAPE_INFERENCE.depth -= 1
+
+    marked._marks_shape_inference = True
+    cls._propagate_tensor_meta_non_cached = marked
+
+
+class LiveBytes:
+    """The peak of one rank's live bytes in a run with no allocator to
+    read (meta tensors), counted through storage lifetimes.
+
+    :meth:`hold` counts a tensor's storage once, at its full size, when
+    it is first seen (an op's output, or an argument held before the
+    run), and a weak reference to the storage takes its bytes off when
+    the storage is freed: when the last tensor on it dies, including
+    those autograd saved for the backward pass.  A view or an in-place
+    op's output shares a counted storage and adds nothing.  ``peak`` is
+    the most that was live at once: the arguments, everything the run
+    held at that point, and its outputs if they were alive at the end.
+    A caching allocator's rounding and fragmentation are not counted."""
+
+    def __init__(self):
+        self.live = 0
+        self.peak = 0
+        self.window = 0  # the peak since ``window`` was last set
+        self._refs: Dict[int, Any] = {}
+        # reentrant: a storage may be freed, and its callback run, on
+        # this thread while :meth:`hold` holds the lock
+        self._lock = threading.RLock()
+
+    def hold(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        with self._lock:
+            if key in self._refs:
+                return
+            n = st.nbytes()
+
+            def freed(_ref, key=key, n=n):
+                with self._lock:
+                    if self._refs.pop(key, None) is not None:
+                        self.live -= n
+
+            self._refs[key] = weakref.ref(st, freed)
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            self.window = max(self.window, self.live)
 
 
 class _Profiler(TorchDispatchMode):
     """Records every op one run dispatches.  An op on DTensors is handed
     back to the DTensor subclass first (``NotImplemented``), which runs
     it as local ops and collectives that come back here: the profile is
-    one rank's, as the reference's is one device's SPMD program."""
+    one rank's, as the reference's is one device's SPMD program.  The ops
+    DTensor runs to infer shapes are not recorded
+    (:func:`_mark_shape_inference`)."""
 
-    def __init__(self):
+    def __init__(self, live: Optional[LiveBytes] = None):
         super().__init__()
         self.stats = ProfileStats()
+        self.live = live
+        self.muted = 0  # > 0: dispatched ops are not the run's work
+        _mark_shape_inference()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(t.__name__ == "DTensor" for t in types):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if getattr(_SHAPE_INFERENCE, "depth", 0) or self.muted:
+            return out
+        if self.live is not None:
+            for t in _tensors(out):
+                self.live.hold(t)
         self.stats.record(func, args, kwargs, out)
         return out
 
@@ -395,6 +491,170 @@ def profile_call(fn: Callable, *args,
         collective_bytes=dict(st.collective_bytes), dot_flops=st.dot_flops,
         conv_flops=st.conv_flops,
         raw_cost={f"ops_{k}": float(v) for k, v in st.op_counts.items()})
+
+
+@dataclass
+class MemoryAnalysis:
+    """One rank's memory in a shape-only run (:func:`profile_abstract`),
+    under the reference's ``memory_analysis()`` names: ``peak`` equals
+    ``argument + output - alias + temp``."""
+
+    argument_size_in_bytes: int = 0
+    output_size_in_bytes: int = 0
+    alias_size_in_bytes: int = 0    # outputs written into arguments
+    temp_size_in_bytes: int = 0     # the rest of the peak
+    peak_bytes: int = 0
+
+
+def _storages(tree) -> Dict[int, int]:
+    """``{storage key: bytes}`` of the plain tensors of ``tree``, a
+    DTensor counted by its local shard."""
+    out = {}
+    for t in _tensors(tree):
+        t = getattr(t, "_local_tensor", t)
+        st = t.untyped_storage()
+        out[st._cdata] = st.nbytes()
+    return out
+
+
+class _ShapeMemo:
+    """Profile a pure function once per shape in a meta run.
+
+    On meta tensors a pure function's op stream depends only on its
+    arguments' shapes, dtypes and strides and its other arguments, and
+    yields no data.  The first call with a given key runs and its share
+    of ``prof``'s profile is kept: the stats, and the peak of live bytes
+    it reached above the bytes live at its start.  A later call with the
+    same key adds that share and returns empty meta tensors of the
+    outputs' shapes, counting their bytes as live.  A call with any
+    other tensor (real, or a DTensor) runs the function.  The cache lives
+    as long as the run."""
+
+    def __init__(self, prof: "_Profiler"):
+        self.prof = prof
+        self.cache: Dict[Any, Any] = {}
+
+    def wrap(self, fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            flat, spec = tree_flatten((args, kwargs))
+            ts = [x for x in flat if isinstance(x, torch.Tensor)]
+            if not ts or not all(type(t) is torch.Tensor and t.is_meta
+                                 for t in ts):
+                return fn(*args, **kwargs)
+            key = (fn, str(spec), tuple(
+                (tuple(x.shape), x.dtype, x.stride())
+                if isinstance(x, torch.Tensor) else ("v", repr(x))
+                for x in flat))
+            hit = self.cache.get(key)
+            if hit is None:
+                self.cache[key], out = self._first(fn, args, kwargs)
+                return out
+            return self._again(*hit)
+
+        return wrapped
+
+    def _first(self, fn, args, kwargs):
+        prof, live = self.prof, self.prof.live
+        before = copy.deepcopy(prof.stats)
+        start = live.live
+        live.window = start
+        out = fn(*args, **kwargs)
+        leaves, ospec = tree_flatten(out)
+        shapes = [(tuple(t.shape), t.stride(), t.dtype)
+                  if isinstance(t, torch.Tensor) else ("v", t)
+                  for t in leaves]
+        return (_stats_delta(prof.stats, before), live.window - start,
+                shapes, ospec), out
+
+    def _again(self, delta, inner, shapes, ospec):
+        prof, live = self.prof, self.prof.live
+        for k, v in delta.items():
+            if isinstance(v, dict):
+                d = getattr(prof.stats, k)
+                for n, x in v.items():
+                    d[n] = d.get(n, 0) + x
+            else:
+                setattr(prof.stats, k, getattr(prof.stats, k) + v)
+        live.peak = max(live.peak, live.live + inner)
+        prof.muted += 1
+        try:
+            leaves = [torch.empty_strided(s[0], s[1], dtype=s[2],
+                                          device="meta")
+                      if s[0] != "v" else s[1] for s in shapes]
+        finally:
+            prof.muted -= 1
+        for t in leaves:
+            if isinstance(t, torch.Tensor):
+                live.hold(t)
+        return tree_unflatten(leaves, ospec)
+
+
+def _stats_delta(after: ProfileStats, before: ProfileStats
+                 ) -> Dict[str, Any]:
+    out = {}
+    for k, v in vars(after).items():
+        b = getattr(before, k)
+        if isinstance(v, dict):
+            out[k] = {n: x - b.get(n, 0) for n, x in v.items()
+                      if x != b.get(n, 0)}
+        else:
+            out[k] = v - b
+    return out
+
+
+def profile_abstract(fn: Callable, *args,
+                     memo: Sequence[Tuple[Any, str]] = ()
+                     ) -> Tuple[Signature, MemoryAnalysis]:
+    """The signature of one dispatch of ``fn(*args)`` over shape-only
+    tensors (meta tensors; DTensors of them for a rank of a fake world):
+    the eager counterpart of compiling a program for its cost analysis.
+    Nothing is computed and no memory is allocated; the op profile is
+    the rank's, as on real tensors, with ops DTensor cannot place run
+    replicated (``spmd.ReplicateUnplaceable``).  With no allocator to
+    read, ``peak_memory`` is :class:`LiveBytes`'s peak over the run,
+    the arguments included; ``raw_cost`` also holds the collective bytes
+    by kind and operand (``"collective all-reduce float32[16, 4096]"``).
+    Each ``(owner, name)`` of ``memo`` names a pure function,
+    ``getattr(owner, name)``, that the run profiles once per shape
+    (:class:`_ShapeMemo`): it is replaced for the run only."""
+    from repro_torch.distributed.spmd import ReplicateUnplaceable
+
+    live = LiveBytes()
+    for t in _tensors(args):
+        live.hold(getattr(t, "_local_tensor", t))
+    held = _storages(args)
+    prof = _Profiler(live)
+    shapes = _ShapeMemo(prof)
+    saved = [(owner, name, getattr(owner, name)) for owner, name in memo]
+    try:
+        for owner, name, fn_ in saved:
+            setattr(owner, name, shapes.wrap(fn_))
+        with prof, ReplicateUnplaceable():
+            out = fn(*args)
+    finally:
+        for owner, name, fn_ in saved:
+            setattr(owner, name, fn_)
+    outs = _storages(out)
+    arg_b = sum(held.values())
+    out_b = sum(outs.values())
+    alias = sum(n for k, n in outs.items() if k in held)
+    mem = MemoryAnalysis(
+        argument_size_in_bytes=arg_b, output_size_in_bytes=out_b,
+        alias_size_in_bytes=alias,
+        temp_size_in_bytes=max(live.peak - arg_b - out_b + alias, 0),
+        peak_bytes=live.peak)
+    del out
+    st = prof.stats
+    sig = Signature(
+        flops=st.flops, bytes=st.bytes, transcendentals=st.transcendentals,
+        peak_memory=float(live.peak), op_mix=dict(st.op_bytes),
+        collective_bytes=dict(st.collective_bytes), dot_flops=st.dot_flops,
+        conv_flops=st.conv_flops,
+        raw_cost={**{f"ops_{k}": float(v) for k, v in st.op_counts.items()},
+                  **{f"collective {k}": v
+                     for k, v in st.collective_operands.items()}})
+    return sig, mem
 
 
 def measure_wall_time(fn: Callable[[], Any], warmup: int = 2, iters: int = 5,

@@ -11,10 +11,12 @@ work split across ranks runs side by side, as on devices.
 
 :func:`spawn` waits for every rank up to a time limit, so a hung
 collective fails instead of blocking its caller, and returns each rank's
-result (pickled through the rendezvous directory).
+result (pickled through the rendezvous directory).  :func:`fake_world`
+is the other kind of group: one process as rank 0 of a fake world.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -101,3 +103,26 @@ def spawn(fn: Callable, world: int, *args: Any, device_type: str = "cpu",
         with open(os.path.join(rdv, f"rank{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """A ``"fake"`` process group of ``world`` ranks, joined as rank 0, for
+    the body of the ``with``; destroyed on exit, so no group outlives
+    it.  Its collectives move nothing and return at once: over fake
+    tensors it lets one process run rank 0's part of a program written
+    for ``world`` ranks (the dry run).  Raises if a group is already
+    initialised."""
+    # FakeStore lives in torch's internal testing package, the only home
+    # torch gives the store of its fake process group; importing it also
+    # registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -31,7 +31,8 @@ from __future__ import annotations
 import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -351,13 +352,35 @@ def place(x: torch.Tensor, mesh, placements: Sequence):
                               shape=x.shape, stride=x.stride())
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, and its gradient too:
+    the reference's sharding constraint, which holds in the backward
+    pass as well (its transpose).  A gradient arriving as a partial sum
+    is reduced here, as the reference's partitioner reduces it, instead
+    of flowing on as a partial sum that DTensor would meet by gathering
+    the weights it multiplies."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.placements), None, None
+
+
 def shard(x: torch.Tensor, *logical_axes: Optional[str]):
     """Place ``x`` by logical axes on the active mesh (:func:`place`);
-    the identity without one."""
+    the identity without one.  On a DTensor that takes part in autograd
+    the placement holds for its gradient too (:class:`_Constrain`)."""
     mesh = current_mesh()
     if mesh is None:
         return x
-    return place(x, mesh, named_sharding(x.shape, logical_axes, mesh))
+    placements = named_sharding(x.shape, logical_axes, mesh)
+    if x.requires_grad and hasattr(x, "placements"):
+        return _Constrain.apply(x, mesh, tuple(placements))
+    return place(x, mesh, placements)
 
 
 def dropped_shardings() -> Dict[Tuple, int]:
@@ -370,3 +393,83 @@ def dropped_shardings() -> Dict[Tuple, int]:
 def clear_dropped() -> None:
     """Reset the dropped-sharding registry (it is process-global)."""
     _DROPPED.clear()
+
+
+# ---------------------------------------------------------------------------
+# Param-meta helpers (see repro_torch.models.params)
+# ---------------------------------------------------------------------------
+
+
+class Sharding(NamedTuple):
+    """Where a leaf lives: a mesh and one DTensor placement per mesh dim.
+    It unpacks as the ``(mesh, placements)`` pair that
+    ``CheckpointManager.restore(shardings=)`` and ``distribute_tensor``
+    take; :meth:`spec` gives the reference's PartitionSpec entries."""
+
+    mesh: Any
+    placements: Tuple
+
+    def spec(self, ndim: int) -> Tuple:
+        """The PartitionSpec entries of an ``ndim``-dim leaf: per tensor
+        dim ``None``, the mesh axis that shards it, or a tuple of them
+        in mesh order."""
+        by_dim: Dict[int, list] = {}
+        for (axis, _), pl in zip(mesh_axes(self.mesh), self.placements):
+            if pl.is_shard():
+                by_dim.setdefault(pl.dim, []).append(axis)
+        out = []
+        for d in range(ndim):
+            axes = by_dim.get(d, ())
+            out.append(None if not axes else
+                       axes[0] if len(axes) == 1 else tuple(axes))
+        return tuple(out)
+
+
+def zero_entries(shape: Sequence[int], entries: Sequence, mesh,
+                 rules: ShardingRules) -> Tuple:
+    """The reference's ZeRO-1 rule on PartitionSpec ``entries``: the
+    first dim that is unsharded and divisible by the ``zero`` mesh axes
+    not already used (and at least as long as their product) also
+    shards over them."""
+    zero_axes = rules.mesh_axes_for("zero", mesh)
+    spec = list(entries)
+    used = set()
+    for e in spec:
+        if e is not None:
+            used.update(e if isinstance(e, tuple) else (e,))
+    avail = tuple(a for a in zero_axes if a not in used)
+    if avail:
+        sizes = dict(mesh_axes(mesh))
+        total = 1
+        for a in avail:
+            total *= sizes[a]
+        for i, (dim, e) in enumerate(zip(shape, spec)):
+            if e is None and dim % total == 0 and dim >= total:
+                spec[i] = avail if len(avail) > 1 else avail[0]
+                break
+    return tuple(spec)
+
+
+def sharding_for_meta(meta_tree, mesh=None,
+                      rules: Optional[ShardingRules] = None,
+                      extra_zero: bool = False):
+    """Map a ``ParamMeta`` tree to a tree of :class:`Sharding` leaves over
+    ``mesh`` (default: the active one), or of ``None`` leaves without a
+    mesh.  ``mesh`` is a ``DeviceMesh`` or a :class:`MeshShape` (the
+    rule's arithmetic without devices).  ``extra_zero=True`` applies the
+    ZeRO-1 rule (:func:`zero_entries`), as the optimizer moments take
+    it."""
+    from repro_torch.models.params import tree_map
+
+    mesh = mesh or current_mesh()
+    rules = rules or active_rules()
+    if mesh is None:
+        return tree_map(lambda m: None, meta_tree)
+
+    def one(m) -> Sharding:
+        entries = resolve_entries(m.shape, m.axes, mesh, rules)
+        if extra_zero:
+            entries = zero_entries(m.shape, entries, mesh, rules)
+        return Sharding(mesh, entries_to_placements(entries, mesh))
+
+    return tree_map(one, meta_tree)

@@ -53,8 +53,19 @@ import sys
 from typing import Sequence
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.uint32 import widen
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, without making
+    one (a profiled run would count it)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
 
 
 def is_dtensor(x) -> bool:
@@ -391,3 +402,209 @@ def register_rules() -> None:
         if n % (x.mesh.size() * int(block)) == 0:
             rules.append(([Shard(0)], [Shard(0), None]))
         return rules
+
+
+def embedding(ids, table):
+    """``F.embedding(ids, table)`` for a DTensor ``table`` split by rows
+    (a vocab-sharded embedding): each rank looks up the ids that fall in
+    its rows, zeros for the rest, and the result is a partial sum over
+    the mesh dims that split the table, which the caller's placement
+    reduces (the vocab-parallel lookup the reference's partitioner
+    emits).  DTensor's own rule keeps a masked partial sum that a later
+    cast or redistribution of the ids breaks.  ``ids`` is split as it
+    is on the other mesh dims (a plain tensor is whole); the table's
+    gradient is a partial sum over the mesh dims that split ``ids``."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    R = Replicate()
+    if not is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, [R] * mesh.ndim, run_check=False)
+    coord = mesh.get_coordinate()
+    rows, first = table.shape[0], 0
+    ids_pl, out_pl, grad_pl = [], [], []
+    for i, (pt, pi) in enumerate(zip(table.placements, ids.placements)):
+        if pt == Shard(0):
+            rows //= mesh.size(i)
+            first += coord[i] * rows
+            ids_pl.append(R), out_pl.append(Partial()), grad_pl.append(pt)
+        elif pt.is_replicate() and pi.is_shard():
+            ids_pl.append(pi), out_pl.append(pi), grad_pl.append(Partial())
+        else:
+            ids_pl.append(R), out_pl.append(R), grad_pl.append(pt)
+    ids = ids.redistribute(mesh, ids_pl)
+    local = ids.to_local() - first
+    hit = (local >= 0) & (local < rows)
+    out = F.embedding(torch.where(hit, local, 0),
+                      table.to_local(grad_placements=grad_pl))
+    out = torch.where(hit[..., None], out, 0)
+    shape = tuple(ids.shape) + (table.shape[1],)
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def index_copy_(dst, dim: int, index, src):
+    """``dst.index_copy_(dim, index, src)``, also on a DTensor ``dst``
+    split along ``dim`` (a decode cache split by position), where
+    DTensor's own rule leaves ``dst`` misplaced: each rank writes the
+    rows of ``index`` that fall in its part and keeps the rest, reading
+    nothing back to the host.  ``src`` is placed as ``dst`` is on the
+    other mesh dims (a plain ``src`` is whole)."""
+    if not is_dtensor(dst):
+        return dst.index_copy_(dim, index, src)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = dst.device_mesh
+    R = Replicate()
+    want = [R if p == Shard(dim) else p for p in dst.placements]
+    if not is_dtensor(src):
+        src = DTensor.from_local(src, mesh, [R] * mesh.ndim, run_check=False)
+    src = src.redistribute(mesh, want).to_local()
+    coord = mesh.get_coordinate()
+    rows, first = dst.shape[dim], 0
+    for i, p in enumerate(dst.placements):
+        if p == Shard(dim):
+            rows //= mesh.size(i)
+            first += coord[i] * rows
+    idx = index.to_local() if is_dtensor(index) else index
+    local = dst.to_local()
+    at = torch.clamp(idx - first, 0, rows - 1)
+    mine = ((idx >= first) & (idx < first + rows)).reshape(
+        [-1 if d == dim else 1 for d in range(local.ndim)])
+    local.index_copy_(dim, at, torch.where(mine, src,
+                                           local.index_select(dim, at)))
+    return dst
+
+
+def group_local(fn, *args):
+    """``fn`` on each rank's share of independent groups: ``fn`` takes
+    and returns tensors whose dim 0 is a group dim, and works on each
+    group alone (the MoE layer's sort dispatch and ordered combine).
+    Every DTensor argument is placed with its groups split as the first
+    one's are (``Shard(0)`` on the mesh dims where any argument splits
+    dim 0, whole on the others: the reference's partitioner keeps a
+    group on one device), ``fn`` runs on the local groups, and each
+    tensor it returns is a DTensor split the same way.  Gradients flow
+    through the local call."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dts = [a for a in args if is_dtensor(a)]
+    mesh = dts[0].device_mesh
+    pl = tuple(Shard(0) if any(t.placements[i] == Shard(0) for t in dts)
+               else Replicate() for i in range(mesh.ndim))
+    ways = 1
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            ways *= mesh.size(i)
+    local = [a.redistribute(mesh, pl).to_local() if is_dtensor(a) else a
+             for a in args]
+
+    def wrap(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        shape = (t.shape[0] * ways,) + tuple(t.shape[1:])
+        return DTensor.from_local(
+            t, mesh, pl, run_check=False, shape=torch.Size(shape),
+            stride=contiguous_strides(shape))
+
+    out = fn(*local)
+    return tuple(wrap(t) for t in out) if isinstance(out, tuple) \
+        else wrap(out)
+
+
+def local_experts(fn, x, *weights):
+    """``fn(x, *weights)`` on each rank's groups and experts: ``x`` is
+    (..., E, C, d), split as it is placed (its last dim whole), and each
+    weight is (E, ...), split over E on the mesh dims that split ``x``'s
+    E and whole on the others; ``fn`` maps the local shards to a
+    (..., E, C, n) result placed as ``x``.  A weight's gradient is a
+    partial sum over the mesh dims that split ``x``'s other dims (each
+    rank saw its own groups).  DTensor's own batched matmul would fold
+    the split group and expert dims together and gather one of them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    e_dim = x.ndim - 3
+    wp = tuple(Shard(0) if p == Shard(e_dim) else Replicate()
+               for p in x.placements)
+    wg = tuple(Shard(0) if p == Shard(e_dim)
+               else Partial() if p.is_shard() else Replicate()
+               for p in x.placements)
+    local = [w.redistribute(mesh, wp).to_local(grad_placements=wg)
+             for w in weights]
+    out = fn(x.to_local(), *local)
+    shape = tuple(x.shape[:-1]) + (out.shape[-1],)
+    return DTensor.from_local(
+        out, mesh, x.placements, run_check=False, shape=torch.Size(shape),
+        stride=contiguous_strides(shape))
+
+
+# ---------------------------------------------------------------------------
+# Replication where DTensor has no placement
+# ---------------------------------------------------------------------------
+
+#: (op name, input placements) -> count: the ops that
+#: :class:`ReplicateUnplaceable` ran replicated (process-global, as
+#: ``sharding.dropped_shardings`` is)
+_REPLICATED: dict = {}
+
+_UNPLACEABLE = ("Sharding propagation failed",
+                "does not have a sharding strategy")
+
+
+def replicated_ops() -> dict:
+    """``{"op(placements)": count}`` of the ops run replicated since the
+    last :func:`clear_replicated`."""
+    return dict(_REPLICATED)
+
+
+def clear_replicated() -> None:
+    _REPLICATED.clear()
+
+
+class ReplicateUnplaceable(TorchDispatchMode):
+    """Run an op that DTensor cannot place on its operands made whole.
+
+    DTensor refuses an op its sharding rules do not cover (a view that
+    splits a sharded dim unevenly, an op with no rule), where the
+    reference's SPMD partitioner would gather the operand and go on.
+    This mode does that: when DTensor's sharding propagation fails, every
+    DTensor operand is redistributed to ``Replicate`` on its mesh (an
+    all-gather, or an all-reduce of a partial sum), the op runs again and
+    its result is replicated.  The answer is the op's on the whole
+    tensors, so the numbers stay exact; the cost is counted where it
+    falls (the collectives and the whole-tensor op).  Each such op is
+    recorded in :func:`replicated_ops`.  An op that writes an operand in
+    place is not replicated (its result would land in a copy): it raises
+    as DTensor raised.
+
+    It must be the innermost mode (entered last): it hands each DTensor
+    op on to the modes beneath it and to DTensor, and catches only the
+    propagation failure, raised before any local op runs."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not any(t.__name__ == "DTensor" for t in types):
+            return func(*args, **kwargs)
+        try:
+            return func(*args, **kwargs)
+        except (RuntimeError, NotImplementedError) as exc:
+            if (not any(m in str(exc) for m in _UNPLACEABLE)
+                    or func._schema.is_mutable):
+                raise
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.utils._pytree import tree_leaves, tree_map_only
+
+        def whole(t):
+            return t.redistribute(t.device_mesh,
+                                  [Replicate()] * t.device_mesh.ndim)
+
+        key = (f"{func.overloadpacket.__name__}("
+               + ", ".join("".join(str(p) for p in t.placements)
+                           for t in tree_leaves((args, kwargs))
+                           if isinstance(t, DTensor)) + ")")
+        _REPLICATED[key] = _REPLICATED.get(key, 0) + 1
+        args, kwargs = tree_map_only(DTensor, whole, (args, kwargs))
+        return func(*args, **kwargs)

@@ -41,6 +41,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
+
 f32 = torch.float32
 NEG_INF = -1e30
 
@@ -236,7 +238,57 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention of ``q`` (B, Sq, Hq, D) over ``k``, ``v`` (B, Skv, Hkv,
     D), differentiable through :func:`flash_backward` (the reference's
-    ``flash_attention`` with its custom VJP)."""
-    return _FlashAttention.apply(q, k, v, dict(
-        causal=causal, window=window, softcap=softcap, q_offset=q_offset,
-        q_chunk=q_chunk, kv_chunk=kv_chunk, p_bf16=p_bf16))
+    ``flash_attention`` with its custom VJP).  On DTensors it runs on each
+    rank's shards (:func:`_sharded_flash`)."""
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=q_offset, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                p_bf16=p_bf16)
+    if spmd.is_dtensor(q):
+        return _sharded_flash(q, k, v, opts)
+    return _FlashAttention.apply(q, k, v, opts)
+
+
+def _sharded_flash(q, k, v, opts) -> torch.Tensor:
+    """Attention of DTensors, each rank on its own shards, as the
+    reference's partitioner runs it: the batch dim splits as ``q``'s
+    does, and so do the heads.  Where ``q``'s heads are split over a mesh
+    dim on which ``k``/``v`` are whole (fewer KV heads than ranks), each
+    rank takes the KV heads its query heads read (a slice of its whole
+    copy) and their gradient is a partial sum over that mesh dim.  Any
+    other split (the sequence) is gathered first.  Plain ``k``/``v`` are
+    replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    R = Replicate()
+
+    def dt(t):
+        return t if spmd.is_dtensor(t) else DTensor.from_local(
+            t, mesh, [R] * mesh.ndim, run_check=False)
+
+    k, v = dt(k), dt(v)
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    coord = mesh.get_coordinate()
+    qp, kp, kgrad = [], [], []
+    lo, hi = 0, KV  # the KV heads this rank reads, of its local copy
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        n = mesh.size(i)
+        if pq == Shard(0):
+            qp.append(pq), kp.append(pq), kgrad.append(pq)
+        elif pq == Shard(2) and pk == Shard(2):
+            qp.append(pq), kp.append(pk), kgrad.append(pk)
+        elif pq == Shard(2) and ((H // n) % G == 0 or G % (H // n) == 0):
+            hl = H // n
+            first, last = coord[i] * hl // G, ((coord[i] + 1) * hl - 1) // G
+            lo, hi = lo + first, lo + last + 1
+            qp.append(pq), kp.append(R), kgrad.append(Partial())
+        else:
+            qp.append(R), kp.append(R), kgrad.append(R)
+    q = q.redistribute(mesh, qp)
+    k, v = k.redistribute(mesh, kp), v.redistribute(mesh, kp)
+    kl = k.to_local(grad_placements=kgrad)[:, :, lo:hi]
+    vl = v.to_local(grad_placements=kgrad)[:, :, lo:hi]
+    out = _FlashAttention.apply(q.to_local(), kl, vl, opts)
+    return DTensor.from_local(out, mesh, qp, run_check=False,
+                              shape=q.shape, stride=q.stride())

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.data.generators import torch_dtype
-from repro_torch.distributed import shard
+from repro_torch.distributed import shard, spmd
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.params import ParamMeta, meta
 
@@ -221,6 +221,10 @@ def decode_attention(
     slice is read, gathered at device-side positions (no host read).  Ring
     caches pass explicit ``positions`` instead.
     """
+    if spmd.is_dtensor(k_cache):
+        return _sharded_decode_attention(q, k_cache, v_cache, index=index,
+                                         positions=positions, window=window,
+                                         softcap=softcap)
     B, S, Hkv, D = k_cache.shape
     Hq = q.shape[2]
     G = Hq // Hkv
@@ -246,6 +250,75 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(f32))
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, *, index, positions,
+                              window, softcap) -> torch.Tensor:
+    """:func:`decode_attention` on a DTensor cache, split-K: the cache
+    keeps its batch and position splits (its heads are gathered), the
+    query is gathered to every head and split by batch as the cache is,
+    and each rank scores its own positions.  The softmax's max and sum
+    and the weighted values are reduced over the mesh dims that split
+    the positions (all-reduces of one value a head, and of the output).
+    A window masks the positions outside it; on a linear cache each rank
+    reads only its part of the window's slice, as the plain path does."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = k_cache.device_mesh
+    R = Replicate()
+    kp = [p if p in (Shard(0), Shard(1)) else R for p in k_cache.placements]
+    k_cache = k_cache.redistribute(mesh, kp)
+    v_cache = v_cache.redistribute(mesh, kp)
+    bp = [Shard(0) if p == Shard(0) else R for p in kp]  # batch split
+    if not spmd.is_dtensor(q):
+        q = DTensor.from_local(q, mesh, [R] * mesh.ndim, run_check=False)
+    q = q.redistribute(mesh, bp)
+    B, S, Hkv, D = k_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    coord = mesh.get_coordinate()
+    rows, first = S, 0
+    for i, p in enumerate(kp):
+        if p == Shard(1):
+            rows //= mesh.size(i)
+            first += coord[i] * rows
+    idx, positions = (t.full_tensor() if spmd.is_dtensor(t) else t
+                      for t in (index, positions))
+    kl, vl, ql = k_cache.to_local(), v_cache.to_local(), q.to_local()
+    if positions is None and window is not None and window < S:
+        # the window slice of a linear cache, as :func:`decode_attention`
+        # reads it: each rank reads the ``min(window, rows)`` of its rows
+        # that hold the slice's part on this rank
+        w = min(window, rows)
+        start = torch.clamp(idx - window + 1, 0, S - window)
+        at = torch.clamp(start - first, 0, rows - w) + torch.arange(
+            w, device=idx.device)
+        kl, vl = kl.index_select(1, at), vl.index_select(1, at)
+        pos = first + at
+    elif positions is None:
+        pos = first + torch.arange(rows, device=idx.device)
+    else:
+        pos = positions[first:first + rows]
+
+    def reduced(t, op):
+        pl = [Partial(op) if p == Shard(1) else b for p, b in zip(kp, bp)]
+        return DTensor.from_local(t, mesh, pl, run_check=False
+                                  ).redistribute(mesh, bp).to_local()
+
+    qr = ql.reshape(ql.shape[0], Hkv, G, D).to(f32) / math.sqrt(D)
+    s = _softcap(torch.einsum("bhgd,bkhd->bhgk", qr, kl.to(f32)), softcap)
+    mask = (pos >= 0) & (pos <= idx)
+    if window is not None:
+        mask = mask & (pos > idx - window)
+    s = s.masked_fill(~mask, -math.inf)
+    top = reduced(s.amax(dim=-1, keepdim=True), "max")
+    p = torch.exp(s - top)
+    total = reduced(p.sum(dim=-1, keepdim=True), "sum")
+    o = reduced(torch.einsum("bhgk,bkhd->bhgd", p, vl.to(f32)), "sum")
+    out = (o / total).reshape(ql.shape[0], 1, Hq, D).to(q.dtype)
+    return DTensor.from_local(out, mesh, bp, run_check=False,
+                              shape=torch.Size((B, 1, Hq, D)),
+                              stride=spmd.contiguous_strides((B, 1, Hq, D)))
 
 
 # ---------------------------------------------------------------------------
@@ -320,8 +393,8 @@ def attn_apply(
         ring = window is not None and S_c == window
         slot = torch.remainder(index, window) if ring else index
         slot = slot.reshape(1).to(torch.int64)
-        kc = cache["k"].index_copy_(1, slot, k.to(dt))
-        vc = cache["v"].index_copy_(1, slot, v.to(dt))
+        kc = spmd.index_copy_(cache["k"], 1, slot, k.to(dt))
+        vc = spmd.index_copy_(cache["v"], 1, slot, v.to(dt))
         kc = shard(kc, "batch", "kv_seq", "kv_heads", None)
         vc = shard(vc, "batch", "kv_seq", "kv_heads", None)
         new_cache = {"k": kc, "v": vc}
@@ -458,8 +531,8 @@ def mla_apply(
     new_cache = None
     if cache is not None and index is not None:
         slot = index.reshape(1).to(torch.int64)
-        ckv_c = cache["ckv"].index_copy_(1, slot, ckv.to(dt))
-        kpe_c = cache["k_pe"].index_copy_(1, slot, k_pe.to(dt))
+        ckv_c = spmd.index_copy_(cache["ckv"], 1, slot, ckv.to(dt))
+        kpe_c = spmd.index_copy_(cache["k_pe"], 1, slot, k_pe.to(dt))
         ckv_c = shard(ckv_c, "batch", "kv_seq", None)
         kpe_c = shard(kpe_c, "batch", "kv_seq", None)
         new_cache = {"ckv": ckv_c, "k_pe": kpe_c}
@@ -484,7 +557,10 @@ def mla_apply(
         k = shard(k, "batch", "seq", "heads", None)
         # pad v's head dim up to qk dim for the shared flash attention, then crop
         qk_dim = m_.nope_head_dim + m_.rope_head_dim
-        vpad = F.pad(v, (0, qk_dim - m_.v_head_dim))
+        def pad(t):
+            return F.pad(t, (0, qk_dim - m_.v_head_dim))
+        # on DTensors shard by shard: the head dim is whole on every rank
+        vpad = spmd.local_op(pad, v) if spmd.is_dtensor(v) else pad(v)
         ctx = flash_attention(q, k, vpad, causal=True)[..., : m_.v_head_dim]
         if want_cache:
             new_cache = {
@@ -667,6 +743,12 @@ def _experts(cfg: ModelConfig, expert_in: torch.Tensor, wi, wg, wo,
     """The stacked gated experts on (..., E, C, d) inputs, weights in the
     compute dtype: ``ecd,edf->ecf`` twice, then ``ecf,efd->ecd``."""
     expert_in = shard(expert_in, *axes, "embed")
+    if spmd.is_dtensor(expert_in):
+        # each rank runs its own experts on its own groups
+        def local(x, wi, wg, wo):
+            return (activation(cfg, x @ wg) * (x @ wi)) @ wo
+        return shard(spmd.local_experts(local, expert_in, wi, wg, wo),
+                     *axes, "embed")
     h = expert_in @ wi
     g = expert_in @ wg
     h = shard(activation(cfg, g) * h, *axes, "expert_mlp")
@@ -712,6 +794,15 @@ def moe_apply(p, cfg: ModelConfig,
             outs.append(_combine_groups(y, slot, st, w, Tg))
             counts.append(cnt)
         out, counts = torch.cat(outs), torch.cat(counts)
+    elif spmd.is_dtensor(xg):
+        # each rank dispatches and combines its own groups
+        expert_in, slot, st, w, counts = spmd.group_local(
+            lambda *a: _dispatch_groups(*a, mo, C), xg, top_p.to(dt),
+            top_ids)
+        axes = ((None if mo.ep_major else "batch"), "expert", None)
+        y = _experts(cfg, expert_in, wi, wg, wo, axes)
+        out = spmd.group_local(
+            lambda *a: _combine_groups(*a, Tg), y, slot, st, w)
     else:
         expert_in, slot, st, w, counts = _dispatch_groups(
             xg, top_p.to(dt), top_ids, mo, C)
@@ -810,6 +901,9 @@ def embed_apply(p, cfg: ModelConfig, tokens: torch.Tensor,
 
     def rows(table, ids):
         wide = torch.promote_types(table.dtype, dt)
+        if spmd.is_dtensor(table) and any(p.is_shard(0)
+                                          for p in table.placements):
+            return spmd.embedding(ids, table.to(wide)).to(dt)
         return F.embedding(ids, table.to(wide)).to(dt)
 
     x = rows(p["tokens"], tokens)

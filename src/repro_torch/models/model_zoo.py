@@ -5,7 +5,8 @@ A Model (and the encoder-decoder :class:`EncDecModel`) exposes, as the
 reference's does:
 
 * ``param_meta()`` / ``cache_meta(batch, seq)`` — ParamMeta trees,
-* ``abstract()`` — meta-device tensors (no memory),
+* ``abstract(shardings=)`` — meta-device tensors (no memory; DTensors
+  of their local shape where sharded),
 * ``init(generator, device=)`` — materialised params,
 * ``forward(params, batch)`` — teacher-forced logits and the MoE layers'
   summed auxiliary loss (0 without MoE),
@@ -36,6 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.data.generators import torch_dtype
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import shard, spmd
 from repro_torch.models import layers as L
 from repro_torch.models import trunk, whisper
 from repro_torch.models.params import abstract_params, init_params, tree_map
@@ -49,16 +51,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     their count clamped at 1).  Labels < 0 are ignored.  ``impl="onehot"``
     takes the gold logit by a masked reduction over the vocabulary
     instead of a gather, as the reference's does (its vocab-sharded
-    form)."""
+    form); DTensor logits always take it."""
     logits = logits.to(f32)
     mask = (labels >= 0).to(f32)
     safe = torch.clamp(labels, min=0).to(torch.int64)
-    logz = torch.logsumexp(logits, dim=-1)
-    if impl == "onehot":
+    if spmd.is_dtensor(logits):
+        # max, exp-sum and log as separate reductions, each a partial
+        # result over a vocab-sharded dim (DTensor's logsumexp gathers
+        # the whole vocabulary first); the max is a constant of the
+        # gradient, as in the fused op
+        top = logits.amax(dim=-1, keepdim=True).detach()
+        # each token's sum, and its gradient, split as the tokens are
+        total = shard(torch.exp(logits - top).sum(dim=-1), "batch", "seq")
+        logz = torch.log(total) + top[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+    if impl == "onehot" or spmd.is_dtensor(logits):
+        # on DTensors too: a gather's backward scatters into a zero
+        # tensor DTensor makes whole, and its select loses the masked
+        # partial sum of a vocab-sharded gather; the masked sum is exact
+        # (the other terms are zeros)
         v_iota = torch.arange(logits.shape[-1], device=logits.device)
+        if spmd.is_dtensor(logits):  # split as the logits' vocab is
+            v_iota = shard(v_iota, "vocab")
         gold = torch.where(v_iota == safe[..., None], logits,
                            torch.zeros((), dtype=f32, device=logits.device)
                            ).sum(dim=-1)
+        if spmd.is_dtensor(gold):
+            gold = shard(gold, "batch", "seq")
     else:
         gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
@@ -84,9 +104,10 @@ class Model:
     def cache_meta(self, batch: int, seq: int) -> Dict[str, Any]:
         return trunk.trunk_cache_meta(self.cfg, batch, seq)
 
-    def abstract(self):
-        """Meta-device tensors of every param: no storage at any size."""
-        return abstract_params(self.param_meta())
+    def abstract(self, shardings=None):
+        """Meta-device tensors of every param (:func:`abstract_params`):
+        no storage at any size; DTensors where ``shardings`` shard."""
+        return abstract_params(self.param_meta(), shardings)
 
     def init(self, generator: torch.Generator, *, device: DeviceLike = None):
         """Params drawn from ``generator`` on ``device`` (``None``: CUDA)."""

@@ -4,7 +4,8 @@ A model is declared as a nested dict of :class:`ParamMeta` leaves (shape,
 ``torch.dtype``, logical axes, init scheme).  The meta tree is the single
 source of truth for
 
-* abstract params (meta-device tensors: shape and dtype, no memory),
+* abstract params (meta-device tensors: shape and dtype, no memory;
+  DTensors of their local shape when sharded),
 * materialisation (:func:`init_params`, from an explicit
   ``torch.Generator``), and
 * analytic parameter counts.
@@ -72,11 +73,35 @@ def stack_tree(tree, n: int, axis_name: str = "layers"):
     return tree_map(lambda m: stack_metas(m, n, axis_name), tree)
 
 
-def abstract_params(meta_tree):
+def abstract_params(meta_tree, shardings=None):
     """Meta tree -> tree of meta-device tensors (shape and dtype only; no
-    memory is allocated)."""
-    return tree_map(
-        lambda m: torch.empty(m.shape, dtype=m.dtype, device="meta"), meta_tree)
+    memory is allocated).  With ``shardings`` (the same tree, a
+    :class:`~repro_torch.distributed.sharding.Sharding` or ``None`` a
+    leaf, as ``sharding_for_meta`` gives it) a sharded leaf is a DTensor
+    with those placements over the mesh, holding this rank's local
+    shape."""
+    def whole(m: ParamMeta) -> torch.Tensor:
+        return torch.empty(m.shape, dtype=m.dtype, device="meta")
+
+    if shardings is None:
+        return tree_map(whole, meta_tree)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import local_slice
+    from repro_torch.distributed.spmd import contiguous_strides
+
+    def one(m: ParamMeta, sh) -> torch.Tensor:
+        if sh is None:
+            return whole(m)
+        mesh, placements = sh
+        local = local_slice(torch.empty(m.shape, device="meta"), mesh,
+                            placements).shape
+        x = torch.empty(local, dtype=m.dtype, device="meta")
+        return DTensor.from_local(x, mesh, placements, run_check=False,
+                                  shape=torch.Size(m.shape),
+                                  stride=contiguous_strides(m.shape))
+
+    return tree_map(one, meta_tree, shardings)
 
 
 def count_params(meta_tree) -> int:

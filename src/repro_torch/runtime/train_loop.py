@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
+from repro_torch.distributed import spmd
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.params import (ParamMeta, init_params, tree_leaves,
                                        tree_map)
@@ -87,6 +88,17 @@ def _value_and_grad(loss_fn, params, batch):
             tree_map(lambda _: next(grads), leaves))
 
 
+def _as_before(new, old):
+    """``new`` placed as ``old`` was, where ``old`` is a DTensor: the
+    state keeps its layout from step to step (an update mixing a
+    replicated param with a ZeRO-sharded moment would leave it as the
+    moment is)."""
+    if spmd.is_dtensor(old) and tuple(new.placements) != tuple(old.placements):
+        with torch.no_grad():
+            return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
 def make_train_step(model: Model, settings: TrainSettings):
     cfg: ModelConfig = model.cfg
     accum = max(cfg.grad_accum, 1)
@@ -132,6 +144,8 @@ def make_train_step(model: Model, settings: TrainSettings):
         new_state: TrainState = {"params": new_params, "opt": new_opt}
         if comp_state is not None:
             new_state["comp"] = comp_state
+        new_state = tree_map(_as_before, new_state,
+                             {k: state[k] for k in new_state})
         out = {"loss": loss, **metrics, **ostats, **stats}
         return new_state, out
 

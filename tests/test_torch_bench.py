@@ -134,6 +134,11 @@ def test_the_port_imports_nothing_of_jax_or_the_reference():
         "optim/schedules", "data/__init__", "data/pipeline",
         "runtime/train_loop", "launch/__init__", "launch/mesh",
         "launch/train", "bench/train_lm", "convert")} <= scanned
+    # and the dry run's and its tools'
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "launch/dryrun", "distributed/launch",
+        "bench/roofline", "bench/hillclimb", "bench/proxy_for_pod_model",
+        "bench/quickstart")} <= scanned
     assert len([f for f in scanned
                 if f.startswith("src/repro_torch/configs/")]) == 12
     bad = [f"{f.relative_to(ROOT)}:{line} imports {root}"

@@ -2,8 +2,8 @@
 package's ``repro.launch``: ``reduce_config`` field for field for all ten
 archs; ``train`` on a tiny config on the CPU (the loss falls; a fault
 injected through ``fault_hook`` at a step right after a checkpoint
-recovers to the same losses as a run without it); the data-parallel
-refusal; ``make_host_mesh``; and the two command lines
+recovers to the same losses as a run without it); ``make_host_mesh``;
+and the two command lines
 (``python -m repro_torch.launch.train`` and ``repro_torch.bench.train_lm``)
 at a tiny size."""
 from __future__ import annotations
@@ -67,17 +67,6 @@ def test_an_injected_fault_recovers_to_the_same_losses(tmp_path):
     assert [m["retries"] for m in log_b] == [0, 0, 0, 1, 0]
     for a, b in zip(log_a, log_b):
         assert a["loss"] == b["loss"], (a, b)
-
-
-def test_train_refuses_data_parallel_ranks(monkeypatch):
-    class TwoRanks:
-        def size(self):
-            return 2
-
-    monkeypatch.setattr(train_mod, "make_host_mesh",
-                        lambda *a, **k: TwoRanks())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5c"):
-        train_mod.train("tinyllama-1.1b", **TINY)
 
 
 def test_make_host_mesh_and_a_placed_pipeline(tmp_path):
