@@ -26,6 +26,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.store import atomic_write_text
 from repro_torch.kernels import _build, moe_dispatch
 
 #: the markers in moe_dispatch.cu: the main loop's refill of the ring
@@ -60,7 +61,7 @@ def build(out_dir: Path) -> Dict[str, ctypes.CDLL]:
     procs = {}
     for name, text in variant_sources(src).items():
         cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
+        atomic_write_text(str(cu), text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
              str(_build.CSRC), str(cu), "-o", str(out_dir / f"{name}.so")],

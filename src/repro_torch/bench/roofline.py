@@ -93,9 +93,9 @@ def main(argv=None) -> int:
     text = table(load(args.json), args.mesh)
     print(text)
     if args.md:
-        os.makedirs(os.path.dirname(args.md) or ".", exist_ok=True)
-        with open(args.md, "w") as f:
-            f.write(text + "\n")
+        from repro_torch.core.store import atomic_write_text
+
+        atomic_write_text(args.md, text + "\n")
     return 0
 
 

@@ -71,7 +71,7 @@ def main(argv=None) -> int:
     try:
         from repro_torch.bench import kernels_bench
         kernels_bench.main(dev)
-    except Exception as e:  # noqa: BLE001
+    except Exception as e:  # noqa: BLE001 — report it, run the rest
         failures.append(("kernels", repr(e)))
         print(f"FAILED: {e!r}")
 
@@ -80,7 +80,7 @@ def main(argv=None) -> int:
         from repro_torch.bench import paper_repro
         paper_repro.main(["--scale", "0.2", "--iters", "6",
                           "--out", "results/paper_repro.json"] + dev)
-    except Exception as e:  # noqa: BLE001
+    except Exception as e:  # noqa: BLE001 — report it, run the rest
         failures.append(("paper_repro", repr(e)))
         print(f"FAILED: {e!r}")
 
@@ -89,14 +89,14 @@ def main(argv=None) -> int:
         from repro_torch.bench import case_studies
         case_studies.main(["--iters", "5",
                            "--out", "results/case_studies.json"] + dev)
-    except Exception as e:  # noqa: BLE001
+    except Exception as e:  # noqa: BLE001 — report it, run the rest
         failures.append(("case_studies", repr(e)))
         print(f"FAILED: {e!r}")
 
     section("roofline table (from the dry-run sweep)")
     try:
         roofline_section()
-    except Exception as e:  # noqa: BLE001
+    except Exception as e:  # noqa: BLE001 — report it, run the rest
         failures.append(("roofline", repr(e)))
         print(f"FAILED: {e!r}")
 

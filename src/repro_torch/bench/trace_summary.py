@@ -175,11 +175,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"  {s['dur_s']:>10.4f}s  {s['name']}  {s['args']}")
 
     if args.out:
-        import os
+        from repro_torch.bench._io import write_json
 
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(summary, f, indent=1, default=str)
+        write_json(args.out, summary)
     for f in failures:
         print(f"CHECK FAIL: {f}")
     return 1 if failures else 0

@@ -71,6 +71,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
+    # reprolint: ignore[trace-purity] — finds nvcc for the one-time build
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     candidate = Path(cuda_home) / "bin" / "nvcc"
     if candidate.exists():
@@ -118,7 +119,9 @@ def _compile(out_dir: Path) -> str:
     os.replace(tmp_lib, out_dir / LIB_NAME)  # atomic: readers see all or none
     shutil.rmtree(work, ignore_errors=True)
     report = "\n".join(reports)
-    (out_dir / "ptxas.txt").write_text(report)
+    from repro_torch.core.store import atomic_write_text
+
+    atomic_write_text(str(out_dir / "ptxas.txt"), report)
     return report
 
 
@@ -127,11 +130,14 @@ def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     out_dir = BUILD_ROOT / source_digest()
     lib_path = out_dir / LIB_NAME
-    t0 = time.perf_counter()
+    # the build runs once a process (lru_cache), at the first launch; its
+    # clock times the build for BUILD_INFO and decides no kernel's result
+    t0 = time.perf_counter()  # reprolint: ignore[trace-purity]
     compiled = not lib_path.exists()
     if compiled:
         out_dir.mkdir(parents=True, exist_ok=True)
         _compile(out_dir)
+    # reprolint: ignore[trace-purity]
     BUILD_INFO.update(seconds=time.perf_counter() - t0, compiled=compiled,
                       path=str(lib_path))
     lib = ctypes.CDLL(str(lib_path))
