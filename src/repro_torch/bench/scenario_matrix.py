@@ -88,7 +88,8 @@ plus the port's own keys: each cell's ``real_collectives`` and
 ``proxy_collectives`` (bytes by kind), ``real_timing`` / ``proxy_timing``
 and ``real_sharded`` (whether any of the step's inputs splits on the
 scenario's mesh); ``ranks`` (per rank: kernel launches, the device
-memory's peak); ``substrate_parity`` with ``--substrate hopper``.
+memory's peak); ``substrate_parity`` with ``--substrate hopper``;
+``check_failures`` (the gates that failed, as ``--check`` prints them).
 """
 from __future__ import annotations
 
@@ -109,6 +110,7 @@ from repro_torch.core.cluster import (
     ClusterError,
     get_scenario,
     in_mesh,
+    mesh_group,
     quantize_proxy,
     splits_inputs,
     trend_consistency,
@@ -358,18 +360,26 @@ def _leaves(tree, prefix=""):
 def population_bench(pb, n, mesh_scn, device, iters=3, seed=0):
     """Same candidate batch: one rank vs split across the scenario mesh's
     ranks (population-parallel tuning).  Every rank calls this; rank 0
-    runs the one-rank side."""
+    runs the one-rank side while the mesh's other ranks wait at a
+    barrier, as the reference times it alone, one side after the other;
+    a second barrier then starts the sharded side on every rank at
+    once."""
     pop = [pb.with_node(pb.nodes[0].id, weight=float(i % 5 + 1),
                         sparsity=0.1 * (i % 3))
            for i in range(n)]
+    mesh = mesh_scn.mesh(device.type)
+    group = mesh_group(mesh) if in_mesh(mesh) else None
+    if group is not None:
+        dist.barrier(group=group)
     single = None
     if _rank() == 0:
         single = EvalSession(run=True, seed=seed,
                              device=device).population_runtime(
             pop, iters=iters)
-    mesh = mesh_scn.mesh(device.type)
+    if group is not None:
+        dist.barrier(group=group)
     sharded = None
-    if in_mesh(mesh):
+    if group is not None:
         sharded = EvalSession(run=True, seed=seed, device=device,
                               mesh=mesh).population_runtime(pop, iters=iters)
     if _rank() != 0:
@@ -539,6 +549,7 @@ def run(args) -> int:
                         "span_names": sorted(snap.get("spans", {}))}
         say(f"[scenario_matrix] trace -> {args.trace} ({n_events} events)")
 
+    doc["check_failures"] = failures
     write_json(args.out, doc)
     say(f"[scenario_matrix] wrote {args.out}")
     _print_tables(doc, scenarios, args.tune_under_mesh)

@@ -514,27 +514,111 @@ def group_local(fn, *args):
         else wrap(out)
 
 
+class _AsGradient(torch.autograd.Function):
+    """A DTensor seen in ``placements`` (a local slice of a replicated
+    dim, no collective), whose gradient passes back in the layout it
+    comes in, not redistributed to the input's."""
+
+    @staticmethod
+    def forward(ctx, w, placements):
+        return w.redistribute(w.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ExpertMatmul(torch.autograd.Function):
+    """``x @ w`` of (..., E, C, a) inputs and (E, a, b) expert weights,
+    the weight's gradient taken only on ``part``, its rows ``lo:hi`` of
+    dim ``dim`` (a tensor of that slice's shape)."""
+
+    @staticmethod
+    def forward(ctx, x, w, part, dim, lo, hi):
+        ctx.save_for_backward(x, w)
+        ctx.cut = (dim, lo, hi - lo)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dim, lo, n = ctx.cut
+        dx = g @ w.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[2]:
+            if dim == 0:
+                x, g = x.narrow(-3, lo, n), g.narrow(-3, lo, n)
+            elif dim == 1:
+                x = x.narrow(-1, lo, n)
+            else:
+                g = g.narrow(-1, lo, n)
+            dw = x.transpose(-1, -2) @ g
+            if dw.ndim > 3:
+                dw = dw.sum(tuple(range(dw.ndim - 3)))
+        return dx, None, dw, None, None, None
+
+
 def local_experts(fn, x, *weights):
-    """``fn(x, *weights)`` on each rank's groups and experts: ``x`` is
+    """``fn(x, *maps)`` on each rank's groups and experts: ``x`` is
     (..., E, C, d), split as it is placed (its last dim whole), and each
-    weight is (E, ...), split over E on the mesh dims that split ``x``'s
-    E and whole on the others; ``fn`` maps the local shards to a
-    (..., E, C, n) result placed as ``x``.  A weight's gradient is a
-    partial sum over the mesh dims that split ``x``'s other dims (each
-    rank saw its own groups).  DTensor's own batched matmul would fold
-    the split group and expert dims together and gather one of them."""
+    weight is (E, a, b), split over E on the mesh dims that split ``x``'s
+    E and whole on the others, and reaches ``fn`` as its linear map
+    ``t -> t @ w`` on the local shards; ``fn`` returns a (..., E, C, n)
+    result placed as ``x``.  DTensor's own batched matmul would fold the
+    split group and expert dims together and gather one of them.
+
+    A weight's gradient is a partial sum over the mesh dims that split
+    ``x``'s other dims (each rank saw its own groups).  On a mesh dim
+    where ``x`` is whole (groups that do not divide the data axis), every
+    rank would compute the same gradient: as the reference's partitioner
+    does, each computes only the part the optimizer state keeps on it
+    (the ZeRO-1 rule, ``sharding.zero_entries``, on the weight as the
+    product places it), and the gradient is placed split there."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import (Sharding, active_rules,
+                                                  entries_to_placements,
+                                                  zero_entries)
 
     mesh = x.device_mesh
     e_dim = x.ndim - 3
+    coord = mesh.get_coordinate()
     wp = tuple(Shard(0) if p == Shard(e_dim) else Replicate()
                for p in x.placements)
-    wg = tuple(Shard(0) if p == Shard(e_dim)
-               else Partial() if p.is_shard() else Replicate()
-               for p in x.placements)
-    local = [w.redistribute(mesh, wp).to_local(grad_placements=wg)
-             for w in weights]
-    out = fn(x.to_local(), *local)
+
+    def linear_map(w):
+        zero = entries_to_placements(zero_entries(
+            w.shape, Sharding(mesh, wp).spec(w.ndim), mesh, active_rules()),
+            mesh)
+        gp = tuple(Shard(0) if p == Shard(e_dim)
+                   else Partial() if p.is_shard()
+                   else z if z.is_shard() and mesh.size(i) > 1
+                   else Replicate()
+                   for i, (p, z) in enumerate(zip(x.placements, zero)))
+        # this rank's part: the mesh dims the rule adds split one dim of
+        # the weight, in mesh order (DTensor's nesting)
+        cut = [(i, g.dim) for i, (g, p) in enumerate(zip(gp, wp))
+               if g.is_shard() and g != p]
+        if len({d for _, d in cut}) > 1:
+            raise NotImplementedError(
+                f"the ZeRO rule splits more than one dim of an expert "
+                f"weight: {gp}")
+        if cut:
+            whole_w = w.redistribute(mesh, wp).to_local().detach()
+            view = tuple(Replicate() if g.is_partial() else g for g in gp)
+            part = _AsGradient.apply(w, view).to_local(grad_placements=gp)
+        else:  # the gradient is the whole local slice's, placed back as w
+            part = w.redistribute(mesh, wp).to_local(grad_placements=gp)
+            whole_w = part.detach()
+        dim = cut[0][1] if cut else 0
+        lo, n = 0, whole_w.shape[dim]
+        for i, _ in cut:
+            n //= mesh.size(i)
+            lo += coord[i] * n
+        return lambda t: _ExpertMatmul.apply(t, whole_w, part, dim, lo,
+                                             lo + n)
+
+    out = fn(x.to_local(), *(linear_map(w) for w in weights))
     shape = tuple(x.shape[:-1]) + (out.shape[-1],)
     return DTensor.from_local(
         out, mesh, x.placements, run_check=False, shape=torch.Size(shape),

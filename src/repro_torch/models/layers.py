@@ -744,9 +744,10 @@ def _experts(cfg: ModelConfig, expert_in: torch.Tensor, wi, wg, wo,
     compute dtype: ``ecd,edf->ecf`` twice, then ``ecf,efd->ecd``."""
     expert_in = shard(expert_in, *axes, "embed")
     if spmd.is_dtensor(expert_in):
-        # each rank runs its own experts on its own groups
+        # each rank runs its own experts on its own groups; each weight
+        # comes as its linear map
         def local(x, wi, wg, wo):
-            return (activation(cfg, x @ wg) * (x @ wi)) @ wo
+            return wo(activation(cfg, wg(x)) * wi(x))
         return shard(spmd.local_experts(local, expert_in, wi, wg, wo),
                      *axes, "embed")
     h = expert_in @ wi
@@ -812,13 +813,18 @@ def moe_apply(p, cfg: ModelConfig,
         out = _combine_groups(y, slot, st, w, Tg)
     out = out.reshape(B, S, d)
 
-    if mo.num_shared_experts:
-        out = out + mlp_apply(p["shared"], cfg, x)
-
-    # load-balance aux loss (Switch/GShard style)
+    # load-balance aux loss (Switch/GShard style).  It comes before the
+    # shared experts, so that the shared output product is the layer's
+    # last op: a rematerialised layer's recomputation stops at the last
+    # tensor its backward saved (torch.utils.checkpoint's early stop),
+    # and so skips that product, whose output the backward never reads,
+    # as the reference's compiler drops it
     frac_tokens = counts.to(f32).sum(0) / (G * Tg * mo.experts_per_token)
     frac_probs = probs.mean(dim=(0, 1))
     aux = mo.num_experts * torch.sum(frac_tokens * frac_probs) * mo.aux_loss_weight
+
+    if mo.num_shared_experts:
+        out = out + mlp_apply(p["shared"], cfg, x)
     return shard(out, "batch", "seq", "embed"), aux
 
 

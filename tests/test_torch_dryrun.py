@@ -15,9 +15,14 @@ it, against the JAX package.
   imported, and its ``make_production_mesh`` fails on jax 0.9, so the
   subprocess hands it the plain mesh): the same record keys, per-device
   ``dot_flops`` within ``DOT_RTOL`` (measured: at most 0.4 % apart on
-  these cells), collective bytes on every train cell with data > 1 and
+  these cells, deepseek-v2-lite-16b's +0.34 %: its router and attention
+  products; ``tests/torch_dot_breakdown.py`` breaks a cell down op by
+  op on both sides), collective bytes on every train cell with data > 1 and
   none on a (1, 1) world, and ``roofline_terms`` equal on the same
   signature with the reference's ``HW`` set to the port's table.
+* Token groups that do not divide the data axis (deepseek-v2-lite-16b
+  reduced on (4, 2)): each rank computes only the ZeRO-1 part of the
+  expert weights' gradients, placed as the moments are.
 * The profile's own parts: ``LiveBytes``, ``shape_memo`` (the same
   profile with and without it), ``fake_world`` leaving no group behind.
 """
@@ -73,7 +78,8 @@ CELLS = [((4, 2), "tinyllama-1.1b", 8, "train", 256, 8, "train"),
          ((4, 2), "tinyllama-1.1b", 8, "prefill", 256, 8, "prefill"),
          ((4, 2), "tinyllama-1.1b", 8, "decode", 256, 8, "decode"),
          ((4, 2), "qwen3-4b", 8, "train", 256, 8, "train"),
-         ((1, 1), "tinyllama-1.1b", 8, "train", 256, 8, "train")]
+         ((1, 1), "tinyllama-1.1b", 8, "train", 256, 8, "train"),
+         ((4, 2), "deepseek-v2-lite-16b", 8, "train", 256, 8, "train")]
 
 #: per-device dot flops, port against reference (measured <= 0.4 %)
 DOT_RTOL = 0.02
@@ -263,6 +269,58 @@ def test_run_cell_records_a_skip_and_main_an_error(tmp_path, monkeypatch):
                         "--out", str(out)]) == 1
     (rec,) = json.loads(out.read_text())
     assert rec["multi_pod"] is False and "no rule" in rec["error"]
+
+
+def test_whole_groups_take_the_zero_part_of_the_expert_gradients():
+    """deepseek-v2-lite-16b reduced on a fake (4, 2) world: its 2 token
+    groups do not divide the data axis of 4, so they run whole on every
+    data rank, and each expert weight's gradient comes back in its
+    moments' ZeRO-1 layout (split over ``data`` too), each rank's
+    product for it a quarter of the whole one."""
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import (ParamMeta, abstract_params,
+                                           tree_map)
+
+    cfg = reduce_config(get_config("deepseek-v2-lite-16b"), 8)
+    meta = L.moe_meta(cfg)
+    rules = ShardingRules().with_overrides(dict(cfg.sharding_overrides))
+    products = []
+    with dryrun.fake_mesh((4, 2), ("data", "model")) as mesh, \
+            use_mesh(mesh, rules), spmd.ReplicateUnplaceable():
+        params = tree_map(lambda t: t.requires_grad_(), abstract_params(
+            meta, sharding_for_meta(meta, mesh)))
+        xm = ParamMeta((8, 256, cfg.d_model), getattr(torch, cfg.dtype),
+                       ("batch", None, None), "zeros")
+        x = abstract_params(xm, sharding_for_meta(xm, mesh))
+        y, aux = L.moe_apply(params, cfg, x)
+        names = ("wi", "wg", "wo")
+        bmm = torch.ops.aten.bmm.default
+
+        class Log(torch.utils._python_dispatch.TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if func is bmm:
+                    products.append(tuple(out.shape))
+                return out
+
+        with Log():
+            grads = torch.autograd.grad(y.float().sum() + aux,
+                                        [params[k] for k in names])
+    zero = sharding_for_meta(meta, MeshShape(("data", "model"), (4, 2)),
+                             rules, extra_zero=True)
+    for k, g in zip(names, grads):
+        want = zero[k].spec(3)
+        assert "data" in want and "model" == want[0], (k, want)
+        got = {d: a for d, a in enumerate(want) if a}
+        assert {p.dim: a for a, p in zip(("data", "model"), g.placements)
+                if p.is_shard()} == got, (k, g.placements)
+    E, ff, d = cfg.moe.num_experts // 2, cfg.moe.d_ff, cfg.d_model
+    # the weight products: (experts, a, b), a quarter of a or b
+    assert (2 * E, d // 4, ff) in products and (2 * E, ff // 4, d) in \
+        products
+    assert (2 * E, d, ff) not in products and (2 * E, ff, d) not in products
 
 
 def test_fake_world_leaves_no_group_behind():

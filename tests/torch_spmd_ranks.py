@@ -184,13 +184,14 @@ def decode_attention_run(model_axis: Optional[int]) -> Dict[str, Any]:
     return out
 
 
-def moe_run(model_axis: Optional[int]) -> Dict[str, Any]:
+def moe_run(model_axis: Optional[int], batch: int = 4) -> Dict[str, Any]:
     """``layers.moe_apply`` of the serving config of deepseek-v2-lite-16b
-    (an MoE layer's params, seed 0) on 4 x 12 tokens in groups of 12
-    (numpy seed 3), forward and backward: the output, the input's gradient and the
-    weights' gradients, whole.  With ``model_axis`` the params are placed
-    by ``sharding_for_meta`` (the experts over ``model``) and the tokens
-    on ``data``, under the group's mesh."""
+    (an MoE layer's params, seed 0) on ``batch`` x 12 tokens in groups of
+    12 (numpy seed 3), forward and backward: the output, the input's
+    gradient and the weights' gradients, whole.  With ``model_axis`` the
+    params are placed by ``sharding_for_meta`` (the experts over
+    ``model``) and the tokens on ``data``, under the group's mesh; groups
+    that do not divide the data axis run whole on each of its ranks."""
     from repro_torch.distributed.sharding import place, sharding_for_meta
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import layers as L
@@ -202,7 +203,7 @@ def moe_run(model_axis: Optional[int]) -> Dict[str, Any]:
                          device="cpu")
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal(
-        (4, 12, cfg.d_model)).astype(np.float32))
+        (batch, 12, cfg.d_model)).astype(np.float32))
     mesh = None if model_axis is None else make_host_mesh(model_axis,
                                                           device="cpu")
     if mesh is not None:
