@@ -16,8 +16,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. environment: the card's name and power limit, torch/CUDA versions,
    which torch ops take uint32 on the card, and the kernels' build
    (``nvcc`` on ``src/repro_torch/kernels/csrc``) with its time and
-   ptxas's registers and spills; a spill in ``bitonic_sort.cu`` or
-   ``rmsnorm.cu`` fails the run;
+   ptxas's registers and spills; a spill in ``bitonic_sort.cu``,
+   ``rmsnorm.cu``, ``flash_attention.cu`` or ``moe_dispatch.cu`` fails
+   the run;
 2. kernels: each of the six hand-written kernels against its plain
    PyTorch version on the card, at ragged shapes and at full-width shapes
    of models the repo supports (qwen3-4b, tinyllama-1.1b,
@@ -28,9 +29,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    each matmul, row moments, rmsnorm, flash attention and MoE dispatch
    case logs the form it took (matmul: narrow up to 32 columns, wide
    above; row moments: one launch or split; rmsnorm: warp on 16-byte
-   units, scalar off the 16-byte grid or for longer rows; wgmma for bf16
-   flash attention at head width 64 or 128 and for bf16-x MoE dispatch,
-   simt otherwise), each bitonic sort case its passes, and each row
+   units, scalar off the 16-byte grid or for longer rows; flash
+   attention: wgmma for bf16 at head width 64 or 128, tiled for f32 at
+   those widths, simt at any other; MoE dispatch: wgmma for bf16 x, simt
+   for f32 x), each bitonic sort case its passes, and each row
    moments and rmsnorm case is held bit-equal across two calls; each
    rmsnorm case also times ``copy_`` of its input (events and device ms),
    the card's read-and-write ceiling for the same bytes;
@@ -243,9 +245,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    zeroed just before and read just after: ``repro_torch.bench.
    kernels_bench --check`` in-process on the card, then ``ops.rmsnorm``,
    ``ops.flash_attention`` and ``ops.moe_dispatch`` at the full-width
-   shapes of phase 2; a kernel of the six never launched, or the
-   tensor-core form of flash attention or of MoE dispatch never launched,
-   fails the run.
+   shapes of phase 2; a kernel of the six never launched, or a form of
+   flash attention or of MoE dispatch never launched, fails the run.
 
 Each phase logs its seconds and the card's memory after it: allocated,
 reserved by the caching allocator, and free.
@@ -327,7 +328,8 @@ MOE_SMALL = ((64, 8, 16, 32), (128, 4, 64, 16), (200, 3, 136, 264),
              (300, 5, 70, 130), (37, 3, 5, 24))
 
 #: sources whose every kernel must compile without spilling
-NO_SPILL = ("bitonic_sort.cu", "rmsnorm.cu")
+NO_SPILL = ("bitonic_sort.cu", "rmsnorm.cu", "flash_attention.cu",
+            "moe_dispatch.cu")
 
 #: the kernels ``generate_proxy`` on K-means reaches (``kernel_lowerings``)
 MAIN_PATH_KERNELS = ("matmul", "row_moments", "bitonic_sort")
@@ -715,8 +717,11 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(
             torch, lambda: ref.flash_attention(q, k, v, causal), iters)
-        # SDPA's is_causal keeps k <= q from the top left, as the reference
-        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        # SDPA's is_causal keeps k <= q from the top left, as the reference;
+        # its f32 kernel faults on a base off the 16-byte grid, so it gets
+        # the same values at an aligned base (copied outside the timing)
+        qt, kt, vt = (a.transpose(1, 2) if a.data_ptr() % 16 == 0
+                      else a.clone().transpose(1, 2) for a in (q, k, v))
         row["library_ms"] = time_ms(
             torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal), iters)
@@ -809,7 +814,9 @@ def entry_point_cases(torch, dev, full: bool):
     kernels: ragged shapes, or (``full``) full-width shapes of models the
     repo supports — qwen3-4b's d_model 2560 and head_dim 128 over 32 heads
     (``src/repro/configs/qwen3_4b.py``) at the train_4k length,
-    tinyllama-1.1b's head_dim 64, and deepseek-v2-lite-16b's MoE group
+    tinyllama-1.1b's head_dim 64 (f32 and bf16 at both widths), the
+    prefill attention of deepseek-v2-lite-16b's MLA (16 heads of 192, its
+    nope 128 + rope 64 dims; the generic SIMT form), and its MoE group
     (``configs/deepseek_v2_lite_16b.py``: group 4096, 64 experts, d_model
     2048, 6 experts a token at capacity factor 1.25, so capacity
     int(4096·6·1.25/64) = 480 by ``models/layers.py:561-563``; the mask
@@ -859,6 +866,15 @@ def entry_point_cases(torch, dev, full: bool):
         kv = (2, 130, 4, 64)  # Sq != Skv under the causal mask
         yield "flash_attention", (randn(2, 64, 4, 64), randn(*kv),
                                   randn(*kv), True), 20, False
+        # f32's tiled form: Sq above Skv past one 128-query tile, and bases
+        # off the 16-byte grid (its value-by-value loads) at D = 128
+        kv = (1, 200, 2, 128)
+        yield "flash_attention", (randn(1, 300, 2, 128), randn(*kv),
+                                  randn(*kv), True), 20, False
+        n = 1 * 257 * 2 * 128
+        yield "flash_attention", tuple(
+            randn(n + 1)[1:].view(1, 257, 2, 128)
+            for _ in range(3)) + (True,), 20, False
         # bf16: the wgmma form at D = 64 and 128 (ragged, both masks, Sq
         # below and above Skv), the SIMT form at D = 96
         for qs, kvs, causal in (((2, 130, 4, 64), (2, 130, 4, 64), False),
@@ -892,13 +908,24 @@ def entry_point_cases(torch, dev, full: bool):
         # a bf16 mask with f32 x
         yield "moe_dispatch", (randn(64, 8, 16, dtype=bf16),
                                randn(64, 32)), 20, False
+        # f32 x across its 256 x 128 tile: C one row past it with D off a
+        # multiple of 128 and of 4 (the value-by-value loads), and C, D
+        # past it on 16-byte rows (the cp.async paths), with one-hot and
+        # dense masks in both types
+        for t, e, c, d in ((200, 3, 257, 130), (64, 2, 260, 132)):
+            for mask_dtype in (f32, bf16):
+                yield "moe_dispatch", (routed(t, e, c).to(mask_dtype),
+                                       randn(t, d)), 20, False
+                yield "moe_dispatch", (randn(t, e, c, dtype=mask_dtype),
+                                       randn(t, d)), 20, False
         # base pointers off the 16-byte grid: the wgmma form's scalar loads
         # on shapes whose rows would allow vectors
         t, e, c, d = 128, 4, 64, 16
         for mask_dtype in (f32, bf16):
-            yield "moe_dispatch", (
-                randn(t * e * c + 1, dtype=mask_dtype)[1:].view(t, e, c),
-                randn(t * d + 1, dtype=bf16)[1:].view(t, d)), 20, False
+            for dtype in (bf16, f32):
+                yield "moe_dispatch", (
+                    randn(t * e * c + 1, dtype=mask_dtype)[1:].view(t, e, c),
+                    randn(t * d + 1, dtype=dtype)[1:].view(t, d)), 20, False
         return
     for dtype in (f32, bf16):
         yield "rmsnorm", (randn(32768, 2560, dtype=dtype),
@@ -906,9 +933,11 @@ def entry_point_cases(torch, dev, full: bool):
     yield "rmsnorm", (randn(32768 * 32, 128, dtype=bf16),
                       randn(128, dtype=bf16)), 20, False
     for shape, dtype, iters, headline in (
-            ((1, 4096, 32, 128), f32, 5, False),
+            ((1, 4096, 32, 128), f32, 10, False),
+            ((1, 4096, 32, 64), f32, 10, False),
             ((1, 4096, 32, 128), bf16, 10, True),
-            ((1, 4096, 32, 64), bf16, 10, False)):
+            ((1, 4096, 32, 64), bf16, 10, False),
+            ((1, 4096, 16, 192), bf16, 5, False)):
         yield "flash_attention", tuple(randn(*shape, dtype=dtype)
                                        for _ in range(3)) + (True,), iters, \
             headline
@@ -918,7 +947,7 @@ def entry_point_cases(torch, dev, full: bool):
     yield "moe_dispatch", (mask, randn(4096, 2048, dtype=bf16)), 20, True
     yield "moe_dispatch", (mask.to(bf16), randn(4096, 2048, dtype=bf16)), 20, \
         False
-    yield "moe_dispatch", (mask, randn(4096, 2048)), 3, False
+    yield "moe_dispatch", (mask, randn(4096, 2048)), 10, False
 
 
 def sort_cases(torch, dev, g):
@@ -1631,8 +1660,10 @@ def phase_bench(torch, dev, kernel_rows) -> list:
     if missing:
         raise fail(f"kernels never launched in the bench phase: {missing}")
     for name, by_form in forms.items():
-        if by_form.get("wgmma") == 0:
-            raise fail(f"{name}'s tensor-core form never launched")
+        if name in ("flash_attention", "moe_dispatch"):
+            idle = [f for f, n in by_form.items() if n == 0]
+            if idle:
+                raise fail(f"{name}'s {idle} form(s) never launched")
     entries = []
     for name in ops.KERNELS:
         if name in MAIN_PATH_KERNELS:

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("matmul.cu", "row_moments.cu", "bitonic_sort.cu", "rmsnorm.cu",
            "flash_attention.cu", "moe_dispatch.cu")
-HEADERS = ("common.cuh", "gemm_tile.cuh", "wgmma.cuh")
+HEADERS = ("common.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_kernels.so"

@@ -70,14 +70,54 @@
 // a persistent scheduler, and overlapping one tile's softmax with the
 // next tile's products inside a warpgroup.
 //
-// f32, and bf16 at any other D up to 256: SIMT FMA.  One 256-thread block
-// per (b·h, 64-query tile); the q tile is staged once in shared memory as
-// f32 and 64-key tiles of k and v stream through shared memory.  Each
-// thread owns a 4x4 block of the 64x64 score tile and a 4x(D/16) block of
-// the accumulator; the row max and sum go through a 16-lane shuffle; p
-// goes through shared memory for the PV product.  D is a template
-// constant for 64 and 128 in f32; any other D takes a generic form.  The
-// reference product is full f32, so no TF32.
+// f32 at D = 64 and 128: register-tiled FMA (the reference product is
+// full f32, so no TF32).  A block of 256 threads takes 128 queries; tiles
+// of BK keys (128 at D = 64, 64 at D = 128) stream through shared memory.
+// Thread (ty, tx) = (tid / 16, tid % 16) owns 8 queries, 64·(i/4) + 4·ty +
+// i%4, for the whole kernel: their 8 x BK/16 scores against keys 16·j +
+// tx of a tile, their running max and sums, and their 8 x D/16 block of
+// the output at columns 64·g + 4·tx + 0..3.  What the design does about
+// each hazard:
+//  1. Score reads: q and k are staged as they lie (rows along d), each
+//     row padded by 4 floats, so a thread reads its 8 queries and BK/16
+//     keys as float4 along d: 8 + BK/16 vector loads for 32·BK/16 FMAs.
+//     A warp's 16 k reads, rows D + 4 floats apart, are two conflict-free
+//     wavefronts; its q reads are two addresses in different banks.  (A
+//     d-major copy would need a transpose through registers for the same
+//     vector width.)
+//  2. PV reads: p is stored key by key (ps[key][query], rows padded by 4
+//     floats), so a thread's 8 queries of one key are two float4, and v
+//     rows are read as float4 at 4·tx: 2 + D/64 vector loads for 8·D/16
+//     FMAs a key.
+//  3. Loads under the FMAs: q once, then k and v by 16-byte cp.async, one
+//     buffer each, alternating: v of tile kt is copied while the scores
+//     of tile kt are computed, k of tile kt+1 while the PV product of
+//     tile kt runs; two barriers a tile (the scores' k; the product's p
+//     and v).  A base off the 16-byte grid loads value by value.
+//  4. Shared memory: 169 KB at D = 64 (q and k 35 KB each, v 32, p 68),
+//     167 KB at D = 128 (q 68, k 34, v 32, p 34), one block an SM, so
+//     every launch raises the function's dynamic limit.
+//  5. Registers: 8·BK/16 scores, 8·D/16 sums and 16 running statistics a
+//     thread, 64 + 32 at D = 64 and 32 + 64 at D = 128; one block of 256
+//     threads an SM leaves 255 a thread (ptxas reports spills).
+//  6. The softmax: in base 2 (scores times scale·log2 e, ex2.approx, as
+//     the wgmma form), the row max through a 16-lane shuffle each tile;
+//     each thread keeps its own share of the row sum, added over the 16
+//     lanes once at the end.  Only tiles on the causal diagonal and past
+//     Skv are masked.
+//  7. The query tile: 128 rows, as in the wgmma form; the wrapper counts
+//     the grid with the form's own tile.
+// Each score and each output is one fmaf chain in d and key order.  The
+// key tile per width, and the loops' unrolling, are the fastest of those
+// timed on the card that ptxas compiles without spilling.
+//
+// bf16 at any other D up to 256, and f32 at other widths: SIMT FMA.  One
+// 256-thread block per (b·h, 64-query tile); the q tile is staged once in
+// shared memory as f32 and 64-key tiles of k and v stream through shared
+// memory.  Each thread owns a 4x4 block of the 64x64 score tile and a
+// 4x(D/16) block of the accumulator; the row max and sum go through a
+// 16-lane shuffle; p goes through shared memory for the PV product.  The
+// head width is a run-time value.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -93,6 +133,14 @@ constexpr int RQ = BQ / (THREADS / TX);  // 4 query rows a thread
 constexpr int RK = BK / TX;              // 4 keys a thread
 constexpr int MAX_D = 256;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x; exactly 0 at -inf
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -113,14 +161,13 @@ __host__ __device__ constexpr int64_t smem_floats(int d) {
          static_cast<int64_t>(BQ) * (BK + 1);
 }
 
-// DT: the head width, or 0 for any width up to MAX_D given at run time.
-template <typename T, int DT>
+// any head width up to MAX_D, given at run time
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int64_t Sq,
-             int64_t Skv, int64_t H, int d_rt, float scale, bool causal) {
-  constexpr int DJ = (DT > 0 ? DT : MAX_D) / TX;  // output columns a thread
-  const int D = DT > 0 ? DT : d_rt;
+             int64_t Skv, int64_t H, int D, float scale, bool causal) {
+  constexpr int DJ = MAX_D / TX;  // output columns a thread, at most
   const int DP = D + 1;  // padded row: conflict-free column reads
   extern __shared__ float smem[];
   float* qs = smem;               // [BQ][DP]
@@ -224,7 +271,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const int d = tx + j * TX;
-        if (DT == 0 && d >= D) break;
+        if (d >= D) break;
         const float vv = vs[kk * D + d];
 #pragma unroll
         for (int i = 0; i < RQ; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
@@ -240,36 +287,283 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + j * TX;
-      if (DT == 0 && d >= D) break;
+      if (d >= D) break;
       ob[qidx * row + d] = from_f32<T>(acc[i][j] * inv_l);
     }
   }
 }
 
-template <typename T, int DT>
+template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D, float scale,
            bool causal, cudaStream_t s) {
   const size_t bytes = sizeof(float) * smem_floats(D);
-  // once per form: allow its largest shared-memory footprint
+  // once per type: allow its largest shared-memory footprint
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(float) * smem_floats(DT > 0 ? DT : MAX_D)));
+      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(float) * smem_floats(MAX_D)));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>((Sq + BQ - 1) / BQ));
-  flash_kernel<T, DT><<<grid, THREADS, bytes, s>>>(
+  flash_kernel<T><<<grid, THREADS, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, D, scale,
       causal);
   return launch_status();
 }
 
+namespace tiled {
+
+constexpr int BQ = 128;  // queries a block
+constexpr int PP = BQ + 4;  // a row of ps: one key's p for every query
+
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 128, "the tiled form takes D = 64 or 128");
+  static constexpr int BK = D == 64 ? 128 : 64;  // keys a tile
+  static constexpr int KJ = BK / TX;  // keys of a tile a thread scores
+  static constexpr int D_UNROLL = D == 64 ? 2 : 4;  // 4-wide d steps
+  static constexpr int RP = D + 4;   // a row of qs or ks, padded
+  static constexpr int DJ = D / TX;  // output columns a thread
+  static constexpr int Q_FLOATS = BQ * RP;
+  static constexpr int K_FLOATS = BK * RP;
+  static constexpr int V_FLOATS = BK * D;
+  static constexpr int P_FLOATS = BK * PP;
+  static constexpr int SMEM_BYTES =
+      4 * (Q_FLOATS + K_FLOATS + V_FLOATS + P_FLOATS);
+};
+
+// ROWS rows of D floats (row r at src + (r0 + r)·stride) -> dst, rows
+// `pitch` floats apart, zero past row n: 16-byte cp.async when the base
+// is on the 16-byte grid (vec), else 4-byte loads and a 16-byte store.
+// Neighbouring threads take neighbouring 16-byte chunks of a row.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(float* dst, int pitch,
+                                          const float* src, int64_t stride,
+                                          int64_t r0, int64_t n, bool vec,
+                                          int tid) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert(ROWS * CPR % THREADS == 0, "tile shape");
+#pragma unroll
+  for (int j = 0; j < ROWS * CPR / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool in = r0 + r < n;
+    const float* p = src + (in ? r0 + r : 0) * stride + c;
+    float* d = dst + r * pitch + c;
+    if (vec) {
+      wg::cp_async16(wg::smem_u32(d), p, in);
+    } else {
+      *reinterpret_cast<float4*>(d) =
+          in ? make_float4(p[0], p[1], p[2], p[3])
+             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_f32(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int64_t Sq,
+          int64_t Skv, int64_t H, float scale_log2, int causal, int q_vec,
+          int k_vec, int v_vec, int o_vec) {
+  using S = Shape<D>;
+  constexpr int BK = S::BK;
+  constexpr int KJ = S::KJ;
+  constexpr int D_UNROLL = S::D_UNROLL;
+  constexpr int RP = S::RP;
+  constexpr int DJ = S::DJ;
+  extern __shared__ __align__(16) float smem[];
+  float* const qs = smem;              // [BQ][RP]
+  float* const ks = qs + S::Q_FLOATS;  // [BK][RP]
+  float* const vs = ks + S::K_FLOATS;  // [BK][D]
+  float* const ps = vs + S::V_FLOATS;  // [BK][PP]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;  // keys of the scores, columns of the output
+  const int ty = tid / TX;  // the query group
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / H;
+  const int64_t h = bh % H;
+  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
+  const int64_t row = H * D;  // stride between sequence positions
+  const float* qb = q + (b * Sq * H + h) * D;
+  const float* kb = k + (b * Skv * H + h) * D;
+  const float* vb = v + (b * Skv * H + h) * D;
+  float* ob = out + (b * Sq * H + h) * D;
+
+  // under the causal mask, key tiles starting past the block's last query
+  // are wholly masked
+  const int64_t kv_end = causal ? (Skv < q0 + BQ ? Skv : q0 + BQ) : Skv;
+  const int KT = static_cast<int>((kv_end + BK - 1) / BK);
+
+  load_rows<BQ, D>(qs, RP, qb, row, q0, Sq, q_vec, tid);
+  load_rows<BK, D>(ks, RP, kb, row, 0, Skv, k_vec, tid);
+  wg::cp_async_commit();
+
+  // this thread's query i is row 64·(i/4) + 4·ty + i%4 of the block; m
+  // is in log2 units (scores times scale·log2 e)
+  const float* qr = qs + (4 * ty) * RP;
+  float m[8], l[8], o[8][DJ];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DJ; ++c) o[i][c] = 0.0f;
+  }
+
+  for (int kt = 0; kt < KT; ++kt) {
+    const int64_t k0 = int64_t{kt} * BK;
+    wg::cp_async_wait<0>();  // this thread's copies of k tile kt (and q)
+    __syncthreads();  // everyone's, and the last tile's PV reads are done
+    load_rows<BK, D>(vs, D, vb, row, k0, Skv, v_vec, tid);
+    wg::cp_async_commit();
+
+    // S = Q·Kᵀ for keys 16·j + tx, d in order
+    float sc[8][KJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) sc[i][j] = 0.0f;
+#pragma unroll D_UNROLL
+    for (int d = 0; d < D; d += 4) {
+      float4 kv[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (16 * j + tx) * RP + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            qr + ((i / 4) * 64 + i % 4) * RP + d);
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          float a = sc[i][j];
+          a = fmaf(qv.x, kv[j].x, a);
+          a = fmaf(qv.y, kv[j].y, a);
+          a = fmaf(qv.z, kv[j].z, a);
+          sc[i][j] = fmaf(qv.w, kv[j].w, a);
+        }
+      }
+    }
+
+    // online softmax; masked scores never win and weigh an exact 0
+    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t qi = q0 + (i / 4) * 64 + 4 * ty + i % 4;
+      bool ok[KJ];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int64_t kj = k0 + 16 * j + tx;
+        ok[j] = !edge || (kj < Skv && (!causal || kj <= qi));
+        sc[i][j] = ok[j] ? sc[i][j] * scale_log2 : NEG_INF;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      const float corr = ex2(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        sc[i][j] = ok[j] ? ex2(sc[i][j] - m_new) : 0.0f;
+        sum += sc[i][j];
+      }
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DJ; ++c) o[i][c] *= corr;
+    }
+    // p by key: this thread's 4 consecutive queries of a key are a float4
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        *reinterpret_cast<float4*>(ps + (16 * j + tx) * PP + g * 64 + 4 * ty) =
+            make_float4(sc[4 * g][j], sc[4 * g + 1][j], sc[4 * g + 2][j],
+                        sc[4 * g + 3][j]);
+
+    wg::cp_async_wait<0>();  // this thread's copies of v tile kt
+    __syncthreads();  // everyone's, every p, and the score reads of k
+    if (kt + 1 < KT) load_rows<BK, D>(ks, RP, kb, row, k0 + BK, Skv, k_vec, tid);
+    wg::cp_async_commit();
+
+    // O += P·V, keys in order
+#pragma unroll 16
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 p0 = *reinterpret_cast<const float4*>(ps + kk * PP + 4 * ty);
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(ps + kk * PP + 64 + 4 * ty);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int g = 0; g < DJ / 4; ++g) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(vs + kk * D + g * 64 + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          o[i][4 * g] = fmaf(pv[i], vv.x, o[i][4 * g]);
+          o[i][4 * g + 1] = fmaf(pv[i], vv.y, o[i][4 * g + 1]);
+          o[i][4 * g + 2] = fmaf(pv[i], vv.z, o[i][4 * g + 2]);
+          o[i][4 * g + 3] = fmaf(pv[i], vv.w, o[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: the row sums over the 16 lanes, then O / max(l, 1e-30);
+  // rows past Sq dropped
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float inv_l = 1.0f / fmaxf(half_warp_sum(l[i]), 1e-30f);
+    const int64_t qi = q0 + (i / 4) * 64 + 4 * ty + i % 4;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int g = 0; g < DJ / 4; ++g) {
+      float* p = ob + qi * row + g * 64 + 4 * tx;
+      const float4 r = make_float4(o[i][4 * g] * inv_l, o[i][4 * g + 1] * inv_l,
+                                   o[i][4 * g + 2] * inv_l,
+                                   o[i][4 * g + 3] * inv_l);
+      if (o_vec) {
+        *reinterpret_cast<float4*>(p) = r;
+      } else {
+        p[0] = r.x;
+        p[1] = r.y;
+        p[2] = r.z;
+        p[3] = r.w;
+      }
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
+           int64_t Sq, int64_t Skv, int64_t H, float scale, bool causal,
+           cudaStream_t s) {
+  // rows are D·4 bytes apart (a multiple of 16), so a base decides
+  const auto aligned = [](const void* p) {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(p) % 16 == 0);
+  };
+  // per launch, so it holds on whichever device is current
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Shape<D>::SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(static_cast<unsigned>(B * H),
+                  static_cast<unsigned>((Sq + BQ - 1) / BQ));
+  flash_f32<D><<<grid, THREADS, Shape<D>::SMEM_BYTES, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
+      scale * LOG2E, causal, aligned(q), aligned(k), aligned(v),
+      aligned(out));
+  return launch_status();
+}
+
+}  // namespace tiled
+
 namespace tc {
 
 constexpr int BQ = 128;  // queries a block: two warpgroups of 64
 constexpr int THREADS = 256;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Tiles by head width, the fastest of those timed on the card (PERF.md
 // §6): 64 keys a tile at D = 64, 128 at D = 128, in a ring of 3 slots, one
@@ -284,12 +578,6 @@ struct Shape {
   static constexpr int SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES + 1024;
   static_assert(D == 64 || D == 128, "the wgmma form takes D = 64 or 128");
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -537,9 +825,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
 int dispatch_f32(const void* q, const void* k, const void* v, void* out,
                  int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D,
                  float scale, bool causal, cudaStream_t s) {
-  if (D == 64) return launch<float, 64>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
-  if (D == 128) return launch<float, 128>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
-  return launch<float, 0>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  if (D == 64) return tiled::launch<64>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
+  if (D == 128) return tiled::launch<128>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
+  return launch<float>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
 }
 
 int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
@@ -547,7 +835,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
                   float scale, bool causal, cudaStream_t s) {
   if (D == 64) return tc::launch<64>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
   if (D == 128) return tc::launch<128>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
-  return launch<__nv_bfloat16, 0>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
 }
 
 }  // namespace

@@ -72,8 +72,8 @@
 // a lane's bits equal that launch's.  One lane with strides 0 is the
 // plain product.
 //
-// moe_dispatch.cu's f32 form keeps the older 64 x 64 loop of
-// gemm_tile.cuh, which reads its A operand column-major in place.
+// moe_dispatch.cu's f32 form is a loop of the same kind with its own
+// tile: its A operand, the mask stripe, is read column-major in place.
 #include <type_traits>
 
 #include "wgmma.cuh"  // wg::cp_async16 and its commit / wait

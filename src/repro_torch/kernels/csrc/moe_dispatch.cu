@@ -19,9 +19,51 @@
 // product with 1.0 plus exact zeros, equal to the plain version bit for
 // bit in either form.
 //
-// f32 x: the SIMT tile loop of gemm_tile.cuh, grid (C tiles, D tiles, E),
-// reading the A operand mask[:, e, :]ᵀ in place through its strides.  The
-// reference product is full f32, so no TF32.
+// f32 x: full-f32 FMA (the reference product is full f32, so no TF32, and
+// no split-TF32 either: it would lose the one-hot exactness).  A block of
+// 256 threads computes a 256 (c) x 128 (d) tile of one expert, each
+// thread a 16 x 8 register tile, over 32-token slabs in a ring of 3
+// stages (144 KB of dynamic shared memory, one block an SM).  Each output
+// is one fmaf chain in token order.  What the design does about each
+// hazard:
+//  1. Layout: mask[:, e, :]ᵀ is contiguous along c and x along d, which
+//     is the k-major layout an outer product reads, so both slabs are
+//     staged as they lie (a slab row is 256 or 128 contiguous f32); no
+//     transpose is made anywhere.
+//  2. Shared-memory reads: per token a thread reads its 16 rows and 8
+//     columns as six float4 (rows rt + 64·g, columns ct + 64·h, rt =
+//     4·(tid / 16), ct = 4·(tid % 16)), 6 vector loads for 128 FMAs; a
+//     warp's 16 column reads are 256 consecutive bytes and its row reads
+//     two addresses, so no bank conflicts and no padding.
+//  3. Overlap: slabs go by 16-byte cp.async straight into shared memory,
+//     two slabs ahead of the FMAs, one barrier a slab.  A bf16 mask,
+//     and any operand off the 16-byte grid, passes through registers
+//     instead: loaded before the slab's FMAs, stored after them (a bf16
+//     mask converted to f32 on the way, exactly).
+//  4. Tile: 256 rows pad the capacity 480 of deepseek-v2-lite-16b's group
+//     to 512 (6 % of the FMAs).  Of the tiles timed on the card this one
+//     was the fastest: 128 x 128 (8 x 8 a thread, two blocks an SM), 128
+//     x 256 and a 96 x 128 tile of 192 threads, which pads nothing at C =
+//     480, were slower, as were other slab depths.  A fourth stage was
+//     about 1 % faster but made a register-staged path spill.
+//  5. Mask re-reads: each (e, c-tile) mask slab is read once per D tile;
+//     D tiles are the fastest grid index, so the blocks that share a
+//     slab run together and L2 serves all but the first read.
+//  6. Edges: tokens past T, rows past C and columns past D are
+//     zero-filled in the loads (cp.async with source size 0), the store
+//     is masked; offsets are 64-bit.  A 4-value unit is loaded whole
+//     when the rows and the base allow it (C, D multiples of 4; the mask
+//     base on a 16-byte grid in f32, 8 in bf16; x's on 16), else value by
+//     value: the launch picks each operand's path and the kernel is
+//     compiled for each.
+//  7. Registers: 128 sums plus 24 operands a thread; one block an SM
+//     leaves 255 a thread, which the paths that stage a slab through
+//     registers (32 or 16 values more) also fit (ptxas reports spills).
+// No all-zero slab is skipped: the op is the dense contraction for any
+// mask, and 0·inf gives NaN as in the reference.  matmul.cu's wide form
+// is a loop of the same shape but not shared with this one: its A is
+// K-major and goes through registers to be transposed, and it picks its
+// tile to fill the SMs at small M.
 //
 // bf16 x: wgmma on the tensor cores (wgmma.cuh).  A block of two
 // warpgroups computes a 128 (c) x 256 (d) tile of one expert, each
@@ -59,22 +101,267 @@
 // copy of this file to time the loads and the tensor cores apart.
 #include <type_traits>
 
-#include "gemm_tile.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-template <typename MaskT>
-__global__ void __launch_bounds__(gemm::THREADS)
-dispatch_simt(const MaskT* __restrict__ mask, const float* __restrict__ x,
-              float* __restrict__ out, int64_t Tok, int64_t E, int64_t C,
-              int64_t D) {
+namespace f32 {
+
+constexpr int BM = 256;  // c rows
+constexpr int BN = 128;  // d columns
+constexpr int BK = 32;   // tokens a slab
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;  // 16 x 16
+constexpr int TM = BM / 16;   // rows a thread: runs of 4, 64 apart
+constexpr int TN = BN / 16;   // columns a thread, likewise
+constexpr int A_UNITS = BK * BM / 4;  // 4-value units of a mask slab
+constexpr int B_UNITS = BK * BN / 4;  // ... of an x slab
+constexpr int NA = A_UNITS / THREADS;
+constexpr int NB = B_UNITS / THREADS;
+constexpr int STAGE_FLOATS = BK * (BM + BN);
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+
+static_assert(NA * THREADS == A_UNITS && NB * THREADS == B_UNITS,
+              "slab shape");
+
+// A block's loads of one slab into one stage: mask rows (t, c0..c0+BM)
+// at As[t][·], x rows (t, d0..d0+BN) at Bs[t][·].  A_VEC / B_VEC: whole
+// 4-value units (by cp.async for f32, through registers for a bf16
+// mask); otherwise value by value through registers.
+template <typename MaskT, bool A_VEC, bool B_VEC>
+struct Slabs {
+  static constexpr bool A_ASYNC = A_VEC && std::is_same_v<MaskT, float>;
+  static constexpr bool B_ASYNC = B_VEC;
+
+  const MaskT* mask;  // mask + e·C: element (t, c) at t·EC + c
+  const float* x;
+  float* smem;
+  int64_t Tok, C, D, EC, c0, d0;
+  int tid;
+  float ra[A_ASYNC ? 1 : NA][4];
+  float rb[B_ASYNC ? 1 : NB][4];
+
+  __device__ float* as(int s) const { return smem + s * STAGE_FLOATS; }
+  __device__ float* bs(int s) const { return as(s) + BK * BM; }
+
+  // slab kt of the mask: cp.async into stage s, or into registers
+  __device__ __forceinline__ void fetch_a(int64_t kt, int s) {
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const int u = tid + j * THREADS;
+      const int t = u / (BM / 4), c = (u % (BM / 4)) * 4;
+      const int64_t gt = kt * BK + t, gc = c0 + c;
+      const MaskT* p = mask + gt * EC + gc;
+      if constexpr (A_ASYNC) {
+        const bool in = gt < Tok && gc < C;
+        wg::cp_async16(wg::smem_u32(as(s) + t * BM + c), in ? p : mask, in);
+      } else if constexpr (A_VEC) {  // 4 bf16, converted exactly
+        uint2 v = make_uint2(0u, 0u);
+        if (gt < Tok && gc < C) v = __ldg(reinterpret_cast<const uint2*>(p));
+        ra[j][0] = __uint_as_float(v.x << 16);
+        ra[j][1] = __uint_as_float(v.x & 0xffff0000u);
+        ra[j][2] = __uint_as_float(v.y << 16);
+        ra[j][3] = __uint_as_float(v.y & 0xffff0000u);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ra[j][i] = gt < Tok && gc + i < C ? to_f32(p[i]) : 0.0f;
+      }
+    }
+  }
+  // slab kt of x: cp.async into stage s, or into registers
+  __device__ __forceinline__ void fetch_b(int64_t kt, int s) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int u = tid + j * THREADS;
+      const int t = u / (BN / 4), d = (u % (BN / 4)) * 4;
+      const int64_t gt = kt * BK + t, gd = d0 + d;
+      const float* p = x + gt * D + gd;
+      if constexpr (B_ASYNC) {
+        const bool in = gt < Tok && gd < D;
+        wg::cp_async16(wg::smem_u32(bs(s) + t * BN + d), in ? p : x, in);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          rb[j][i] = gt < Tok && gd + i < D ? p[i] : 0.0f;
+      }
+    }
+  }
+  // the registers of the last fetch -> stage s
+  __device__ __forceinline__ void store(int s) const {
+    if constexpr (!A_ASYNC) {
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        const int u = tid + j * THREADS;
+        *reinterpret_cast<float4*>(as(s) + (u / (BM / 4)) * BM +
+                                   (u % (BM / 4)) * 4) =
+            make_float4(ra[j][0], ra[j][1], ra[j][2], ra[j][3]);
+      }
+    }
+    if constexpr (!B_ASYNC) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int u = tid + j * THREADS;
+        *reinterpret_cast<float4*>(bs(s) + (u / (BN / 4)) * BN +
+                                   (u % (BN / 4)) * 4) =
+            make_float4(rb[j][0], rb[j][1], rb[j][2], rb[j][3]);
+      }
+    }
+  }
+};
+
+template <typename MaskT, bool A_VEC, bool B_VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+dispatch_fma(const MaskT* __restrict__ mask, const float* __restrict__ x,
+             float* __restrict__ out, int64_t Tok, int64_t E, int64_t C,
+             int64_t D, int out_vec) {
+  extern __shared__ __align__(16) float smem[];
   const int64_t e = blockIdx.z;
-  gemm::tile<MaskT, float, float, true>(
-      mask + e * C, E * C, x, D, out + e * C * D, D, C, D, Tok,
-      static_cast<int64_t>(blockIdx.x) * gemm::BM,
-      static_cast<int64_t>(blockIdx.y) * gemm::BN);
+  const int tid = threadIdx.x;
+  // this thread's rows rt + 64·g + {0..3} and columns ct + 64·h + {0..3}
+  // of the block's tile
+  const int rt = tid / 16 * 4, ct = tid % 16 * 4;
+  Slabs<MaskT, A_VEC, B_VEC> ld{mask + e * C,
+                                x,
+                                smem,
+                                Tok,
+                                C,
+                                D,
+                                E * C,
+                                static_cast<int64_t>(blockIdx.y) * BM,
+                                static_cast<int64_t>(blockIdx.x) * BN,
+                                tid,
+                                {},
+                                {}};
+  const int64_t KT = (Tok + BK - 1) / BK;
+
+  // The ring: slab kt sits in stage kt % STAGES.  Iteration kt waits for
+  // slab kt, then refills the stage slab kt-1 used (every thread passed
+  // the barrier after its FMAs) with slab kt + STAGES - 1: copies issued
+  // before this slab's FMAs, register loads stored after them.
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) {
+      ld.fetch_a(s, s);
+      ld.fetch_b(s, s);
+      ld.store(s);
+    }
+    wg::cp_async_commit();
+  }
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  for (int64_t kt = 0; kt < KT; ++kt) {
+    wg::cp_async_wait<STAGES - 2>();  // this thread's copies of slab kt
+    __syncthreads();  // everyone's, their stores, and slab kt-1 is done
+    const int64_t nk = kt + STAGES - 1;
+    const int ns = static_cast<int>(nk % STAGES);
+    const bool more = nk < KT;
+    if (more) {
+      ld.fetch_a(nk, ns);
+      ld.fetch_b(nk, ns);
+    }
+    wg::cp_async_commit();
+
+    const int cs = static_cast<int>(kt % STAGES);
+    const float* as = ld.as(cs) + rt;
+    const float* bs = ld.bs(cs) + ct;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int g = 0; g < TM / 4; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(as + k * BM + g * 64);
+        a[4 * g] = v.x;
+        a[4 * g + 1] = v.y;
+        a[4 * g + 2] = v.z;
+        a[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + k * BN + h * 64);
+        b[4 * h] = v.x;
+        b[4 * h + 1] = v.y;
+        b[4 * h + 2] = v.z;
+        b[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (more) ld.store(ns);
+  }
+
+  // epilogue: float4 stores when D is a multiple of 4
+  float* o = out + e * C * D;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t row = ld.c0 + (i / 4) * 64 + rt + i % 4;
+    if (row >= C) continue;
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const int64_t col = ld.d0 + h * 64 + ct;
+      float* p = o + row * D + col;
+      if (out_vec) {
+        if (col < D)
+          *reinterpret_cast<float4*>(p) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < D) p[j] = acc[i][4 * h + j];
+      }
+    }
+  }
 }
+
+template <typename MaskT, bool A_VEC, bool B_VEC>
+int launch_paths(const void* mask, const void* x, void* out, int64_t Tok,
+                 int64_t E, int64_t C, int64_t D, int out_vec,
+                 cudaStream_t s) {
+  // per launch, so it holds on whichever device is current
+  const cudaError_t attr = cudaFuncSetAttribute(
+      dispatch_fma<MaskT, A_VEC, B_VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // D tiles fastest: the blocks that read one mask slab run together
+  const dim3 grid(static_cast<unsigned>((D + BN - 1) / BN),
+                  static_cast<unsigned>((C + BM - 1) / BM),
+                  static_cast<unsigned>(E));
+  dispatch_fma<MaskT, A_VEC, B_VEC><<<grid, THREADS, SMEM_BYTES, s>>>(
+      static_cast<const MaskT*>(mask), static_cast<const float*>(x),
+      static_cast<float*>(out), Tok, E, C, D, out_vec);
+  return launch_status();
+}
+
+template <typename MaskT>
+int launch(const void* mask, const void* x, void* out, int64_t Tok, int64_t E,
+           int64_t C, int64_t D, cudaStream_t s) {
+  // whole 4-value units where every unit read starts on its own size: the
+  // mask's rows (stride E·C) and stripes (offset e·C) when C is a
+  // multiple of 4, x's rows when D is, and each base
+  const auto on = [](const void* p, size_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  const bool a_vec = C % 4 == 0 && on(mask, 4 * sizeof(MaskT));
+  const bool b_vec = D % 4 == 0 && on(x, 16);
+  const int out_vec = D % 4 == 0 && on(out, 16);
+  if (a_vec && b_vec)
+    return launch_paths<MaskT, true, true>(mask, x, out, Tok, E, C, D, out_vec, s);
+  if (a_vec)
+    return launch_paths<MaskT, true, false>(mask, x, out, Tok, E, C, D, out_vec, s);
+  if (b_vec)
+    return launch_paths<MaskT, false, true>(mask, x, out, Tok, E, C, D, out_vec, s);
+  return launch_paths<MaskT, false, false>(mask, x, out, Tok, E, C, D, out_vec, s);
+}
+
+}  // namespace f32
 
 namespace tc {
 
@@ -349,18 +636,6 @@ int launch(const void* mask, const void* x, void* out, int64_t Tok, int64_t E,
 
 }  // namespace tc
 
-template <typename MaskT>
-int launch_simt(const void* mask, const void* x, void* out, int64_t Tok,
-                int64_t E, int64_t C, int64_t D, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>((C + gemm::BM - 1) / gemm::BM),
-                  static_cast<unsigned>((D + gemm::BN - 1) / gemm::BN),
-                  static_cast<unsigned>(E));
-  dispatch_simt<MaskT><<<grid, gemm::THREADS, 0, s>>>(
-      static_cast<const MaskT*>(mask), static_cast<const float*>(x),
-      static_cast<float*>(out), Tok, E, C, D);
-  return launch_status();
-}
-
 }  // namespace
 
 extern "C" int repro_moe_dispatch(int mask_dtype, int dtype, const void* mask,
@@ -369,9 +644,9 @@ extern "C" int repro_moe_dispatch(int mask_dtype, int dtype, const void* mask,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32 && mask_dtype == kFloat32)
-    return launch_simt<float>(mask, x, out, T, E, C, D, s);
+    return f32::launch<float>(mask, x, out, T, E, C, D, s);
   if (dtype == kFloat32 && mask_dtype == kBFloat16)
-    return launch_simt<__nv_bfloat16>(mask, x, out, T, E, C, D, s);
+    return f32::launch<__nv_bfloat16>(mask, x, out, T, E, C, D, s);
   if (dtype == kBFloat16 && mask_dtype == kFloat32)
     return tc::launch<float>(mask, x, out, T, E, C, D, s);
   if (dtype == kBFloat16 && mask_dtype == kBFloat16)

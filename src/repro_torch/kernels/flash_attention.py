@@ -9,9 +9,9 @@ single-slice kernel.  A signature profile sees one dot-class op with
 4·D flops for every (query, key) pair the mask keeps.  A tensor on the
 CPU runs the plain version (``ref.flash_attention``); a CUDA tensor
 launches the kernel or raises.  :func:`form` names the kernel's form
-(tensor cores for bf16 at head width 64 or 128, SIMT FMA otherwise; the
-kernel picks its own load widths) and ``flash_attention.forms`` counts
-launches per form.
+(tensor cores for bf16 at head width 64 or 128, register-tiled FMA for
+f32 at those widths, SIMT FMA at any other; the kernel picks its own load
+widths) and ``flash_attention.forms`` counts launches per form.
 
 The causal mask keeps ``k_idx <= q_idx`` with both indices counted from
 0, top-left aligned as in the reference, also when ``Sq != Skv``.
@@ -31,21 +31,25 @@ NEG_INF = -1e30
 L_FLOOR = 1e-30
 #: widest head the kernel takes (64 and 128 have their own compiled forms)
 MAX_D = 256
-#: head widths of the tensor-core form (bf16 only)
+#: head widths of the tensor-core form (bf16) and of the tiled form (f32)
 WGMMA_D = (64, 128)
-FORMS = ("wgmma", "simt")
+TILED_D = (64, 128)
+FORMS = ("wgmma", "tiled", "simt")
 #: query tile of each form; the grid's second dimension counts them
-BQ = {"wgmma": 128, "simt": 64}
+BQ = {"wgmma": 128, "tiled": 128, "simt": 64}
 MAX_GRID_Y = 65535
 MAX_GRID_X = (1 << 31) - 1
 
 
 def form(q: torch.Tensor) -> str:
     """The kernel form a CUDA call on q runs: "wgmma" (bf16 at head width
-    64 or 128, tensor cores) or "simt" (f32, or bf16 at any other width:
-    FMA in f32)."""
-    return ("wgmma" if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_D
-            else "simt")
+    64 or 128, tensor cores), "tiled" (f32 at 64 or 128: FMA, 128
+    queries a block, 8 a thread in registers) or "simt" (any other width:
+    FMA in f32, 64 queries a block)."""
+    d = q.shape[-1]
+    if q.dtype == torch.bfloat16 and d in WGMMA_D:
+        return "wgmma"
+    return "tiled" if q.dtype == torch.float32 and d in TILED_D else "simt"
 
 
 def kept_pairs(sq: int, skv: int, causal: bool) -> int:

@@ -7,7 +7,8 @@ dot-class op with 2·T·E·C·D flops.  As in the reference the mask is cast
 to x's dtype before the product.  A tensor on the CPU runs the plain
 version (``ref.moe_dispatch``); a CUDA tensor launches the kernel or
 raises.  :func:`form` names the kernel's form (tensor cores for bf16 x,
-the SIMT tile loop for f32 x; the kernel picks its own load widths) and
+full-f32 FMA with 8 x 8 register tiles for f32 x; the kernel picks its
+own load widths) and
 ``moe_dispatch.forms`` counts launches per form.  :func:`make_dispatch_mask` is plain torch, as
 in the reference.
 """
@@ -20,6 +21,10 @@ from repro_torch.kernels import _build, ref
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_EXPERTS = 65535  # the grid's third dimension
 FORMS = ("wgmma", "simt")
+#: capacity rows of a block in each form; the grid's second dimension
+#: counts them (D tiles are its first)
+BM = {"wgmma": 128, "simt": 256}
+MAX_GRID_Y = 65535
 
 
 def form(x: torch.Tensor) -> str:
@@ -52,10 +57,14 @@ def _moe_dispatch_op(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return out
     if e > MAX_EXPERTS:
         raise ValueError(f"moe_dispatch takes at most {MAX_EXPERTS} experts")
+    kind = form(x)
+    if -(-c // BM[kind]) > MAX_GRID_Y:
+        raise ValueError(f"moe_dispatch: capacity {c} exceeds the launch "
+                         f"grid")
     _build.call("repro_moe_dispatch", _build.dtype_code(mask, DTYPES),
                 _build.dtype_code(x, DTYPES), mask.data_ptr(), x.data_ptr(),
                 out.data_ptr(), t, e, c, d, _build.stream_ptr(x.device))
-    _build.count_launch(moe_dispatch, form(x))
+    _build.count_launch(moe_dispatch, kind)
     return out
 
 

@@ -262,17 +262,22 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
-    # D = 64 and 128: the wgmma form in bf16, compiled SIMT forms in f32;
-    # D = 96 the generic SIMT form; ragged Skv; Sq below and above Skv
-    # under the causal mask; bases off the 16-byte grid (scalar loads)
+    # D = 64 and 128: the wgmma form in bf16, the tiled form (128 queries
+    # a block) in f32; D = 96 the generic SIMT form; ragged Skv; Sq below
+    # and above Skv under the causal mask; Sq past two query tiles; Skv
+    # past Sq; bases off the 16-byte grid (scalar loads)
     tops.reset_launches()
-    calls = {"wgmma": 0, "simt": 0}
-    for qs, kvs, offset in [((2, 130, 4, 64), (2, 130, 4, 64), 0),
-                            ((1, 257, 2, 128), (1, 257, 2, 128), 0),
-                            ((1, 100, 2, 96), (1, 100, 2, 96), 0),
-                            ((2, 64, 4, 64), (2, 130, 4, 64), 0),
-                            ((1, 300, 2, 128), (1, 200, 2, 128), 0),
-                            ((1, 257, 2, 128), (1, 257, 2, 128), 1)]:
+    calls = {"wgmma": 0, "tiled": 0, "simt": 0}
+    cases = [((2, 130, 4, 64), (2, 130, 4, 64), 0),
+             ((1, 257, 2, 128), (1, 257, 2, 128), 0),
+             ((1, 100, 2, 96), (1, 100, 2, 96), 0),
+             ((2, 64, 4, 64), (2, 130, 4, 64), 0),
+             ((1, 300, 2, 128), (1, 200, 2, 128), 0),
+             ((1, 257, 2, 128), (1, 257, 2, 128), 1),
+             ((2, 260, 2, 64), (2, 260, 2, 64), 0),
+             ((1, 130, 2, 128), (1, 257, 2, 128), 0),
+             ((1, 257, 2, 64), (1, 257, 2, 64), 1)]
+    for qs, kvs, offset in cases:
         q, k, v = (to_torch(np_rand(seed, (offset + n,), "float32"), dtype)
                    .to(cuda_device)[offset:].view(shape)
                    for seed, shape, n in ((7, qs, math.prod(qs)),
@@ -285,8 +290,12 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
                 **FLASH_TOL[dtype])
             calls[tfa.form(q)] += 1
     assert tops.flash_attention.forms == calls
-    # bf16 at D = 64 and 128 took the tensor cores, everything else SIMT
-    assert calls["wgmma"] == (10 if dtype == "bfloat16" else 0)
+    # D = 64 and 128 took the tensor cores in bf16 and the tiled form in
+    # f32, D = 96 the generic SIMT form
+    wide = 2 * sum(qs[-1] in (64, 128) for qs, _, _ in cases)
+    assert calls["wgmma"] == (wide if dtype == "bfloat16" else 0)
+    assert calls["tiled"] == (wide if dtype == "float32" else 0)
+    assert calls["simt"] == 2 * len(cases) - wide
 
 
 @pytest.mark.cuda
@@ -294,13 +303,16 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
 def test_cuda_moe_dispatch_matches_plain(cuda_device, dtype):
     # aligned one-tile shapes; C and D ragged across two tiles with 16-byte
     # rows and T not a multiple of the 64-token slab; C and D that rule
-    # out vector loads.  bf16 x runs the wgmma form, f32 x the SIMT one.
+    # out vector loads; C one row past the f32 form's 256-row tile with D
+    # off its 128 columns, and C, D past both on 16-byte rows.  bf16 x
+    # runs the wgmma form, f32 x the SIMT one.
     tops.reset_launches()
     calls = 0
     tol = (dict(rtol=1e-4, atol=1e-4) if dtype == "float32"
            else dict(rtol=1e-2, atol=1e-2))
     for t, e, c, d in [(64, 8, 16, 32), (128, 4, 64, 16), (200, 3, 136, 264),
-                       (300, 5, 70, 130), (37, 3, 5, 24)]:
+                       (300, 5, 70, 130), (37, 3, 5, 24), (200, 3, 257, 130),
+                       (64, 2, 260, 132)]:
         ids = torch.from_numpy(np_rand(10, (t,), "uint32") % e).to(
             torch.int64).to(cuda_device)
         x = to_torch(np_rand(11, (t, d), "float32"), dtype).to(cuda_device)

@@ -1,6 +1,7 @@
-"""Flash attention's tensor-core form, on the CPU: the bf16 shapes the card
-checks against the JAX package, the wrapper's choice of form, its
-per-form launch counts, and its query tiles against the CUDA source.
+"""Flash attention's tensor-core and tiled forms, on the CPU: the bf16 and
+f32 shapes the card checks against the JAX package, the wrapper's choice
+of form, its per-form launch counts, and its query tiles against the CUDA
+source.
 
 The kernel itself (``csrc/flash_attention.cu``) runs only on the card,
 where ``test_torch_cuda.py`` and ``chip_smoke.py`` hold it against the
@@ -13,7 +14,8 @@ card: ``1e-5 + 1e-2·|want| + 2^-7·(the attention over |v|)``.  The plain
 version keeps p in f32 where the Pallas kernel rounds it to bf16 before
 the PV product (2^-8 relative each, so at most 2^-8 of the attention
 over |v|, taken twice), and both round the output to bf16 (2^-8
-relative each, 1e-2 with room).
+relative each, 1e-2 with room).  In f32 the reference's own
+``rtol=2e-3, atol=2e-4``, as the card holds the tiled form.
 """
 import re
 
@@ -40,6 +42,13 @@ CARD_CASES = [((2, 130, 4, 64), (2, 130, 4, 64), True),
               ((1, 130, 2, 128), (1, 257, 2, 128), False),
               ((1, 100, 2, 96), (1, 100, 2, 96), True)]
 P_ROUNDING = 2.0 ** -7
+#: (q shape, k/v shape, causal): the f32 cases of chip_smoke.py's phase 2
+#: for the tiled form (D = 64 and 128, 128 queries a block) — ragged
+#: under both masks, Sq below and above Skv past one query tile
+F32_CARD_CASES = [((2, 130, 4, 64), (2, 130, 4, 64), True),
+                  ((1, 257, 2, 128), (1, 257, 2, 128), False),
+                  ((2, 64, 4, 64), (2, 130, 4, 64), True),
+                  ((1, 300, 2, 128), (1, 200, 2, 128), True)]
 
 
 @pytest.mark.parametrize("q_shape,kv_shape,causal", CARD_CASES)
@@ -59,11 +68,26 @@ def test_plain_version_matches_pallas_at_the_card_shapes(q_shape, kv_shape,
     assert (np.abs(as_np(got) - w) <= limit).all()
 
 
+@pytest.mark.parametrize("q_shape,kv_shape,causal", F32_CARD_CASES)
+def test_plain_version_matches_pallas_at_the_f32_card_shapes(q_shape,
+                                                             kv_shape,
+                                                             causal):
+    q = np_rand(43, q_shape, "float32")
+    k, v = np_rand(44, kv_shape, "float32"), np_rand(45, kv_shape, "float32")
+    want = jops.flash_attention(*(to_jax(a, "float32") for a in (q, k, v)),
+                                causal=causal, interpret=True)
+    got = tops.flash_attention(*(to_torch(a, "float32") for a in (q, k, v)),
+                               causal=causal)
+    assert got.shape == q_shape and got.dtype == torch.float32
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=2e-3, atol=2e-4)
+
+
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 96, "simt"), (torch.bfloat16, 32, "simt"),
-    (torch.bfloat16, 256, "simt"), (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt")])
+    (torch.bfloat16, 256, "simt"), (torch.float32, 64, "tiled"),
+    (torch.float32, 128, "tiled"), (torch.float32, 96, "simt"),
+    (torch.float32, 192, "simt"), (torch.bfloat16, 192, "simt")])
 def test_form_follows_dtype_and_head_width(dtype, d, want):
     assert tfa.form(torch.zeros(1, 8, 2, d, dtype=dtype)) == want
     # the (S, D) layout, and a base off the 16-byte grid: the kernel picks
@@ -79,19 +103,26 @@ def test_cpu_calls_count_no_launch_of_either_form():
         x = torch.randn(1, 16, 2, d).to(dtype)
         tops.flash_attention(x, x, x)
     assert tops.flash_attention.launches == 0
-    assert tops.flash_attention.forms == {"wgmma": 0, "simt": 0}
+    assert tops.flash_attention.forms == {"wgmma": 0, "tiled": 0, "simt": 0}
     tops.flash_attention.forms["wgmma"] = 2
+    tops.flash_attention.forms["tiled"] = 1
     tops.reset_launches()
-    assert tops.flash_attention.forms == {"wgmma": 0, "simt": 0}
+    assert tops.flash_attention.forms == {"wgmma": 0, "tiled": 0, "simt": 0}
 
 
 def test_query_tiles_match_the_source():
     # the wrapper counts the launch grid with each form's query tile
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    simt, tc = src.split("namespace tc {")
-    assert re.findall(r"constexpr int BQ = (\d+);", simt) == [
-        str(tfa.BQ["simt"])]
-    assert re.findall(r"constexpr int BQ = (\d+);", tc) == [
-        str(tfa.BQ["wgmma"])]
+    simt, rest = src.split("namespace tiled {")
+    tiled, tc = rest.split("namespace tc {")
+    for form, part in (("simt", simt), ("tiled", tiled), ("wgmma", tc)):
+        assert re.findall(r"constexpr int BQ = (\d+);", part) == [
+            str(tfa.BQ[form])], form
     assert set(tfa.BQ) == set(tfa.FORMS)
     assert re.search(r"D == 64 \|\| D == 128", tc) and tfa.WGMMA_D == (64, 128)
+    assert (re.search(r"D == 64 \|\| D == 128", tiled)
+            and tfa.TILED_D == (64, 128))
+    # the C dispatch sends f32 at exactly those widths to the tiled form
+    f32 = src.split("int dispatch_f32(", 1)[1].split("\n}\n", 1)[0]
+    assert re.findall(r"if \(D == (\d+)\) return tiled::launch<(\d+)>",
+                      f32) == [(str(d), str(d)) for d in tfa.TILED_D]

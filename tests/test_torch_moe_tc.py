@@ -31,8 +31,11 @@ from repro_torch.kernels import moe_dispatch as tmd
 from repro_torch.kernels import ops as tops
 
 #: (T, E, C, D): two C and D tiles with 16-byte rows and a ragged slab;
-#: C and D that rule out vector loads; a tiny ragged one
-CARD_SHAPES = [(200, 3, 136, 264), (300, 5, 70, 130), (37, 3, 5, 24)]
+#: C and D that rule out vector loads; a tiny ragged one; C one row past
+#: the f32 form's 256-row tile with D off its 128 columns, and C, D past
+#: both on 16-byte rows
+CARD_SHAPES = [(200, 3, 136, 264), (300, 5, 70, 130), (37, 3, 5, 24),
+               (200, 3, 257, 130), (64, 2, 260, 132)]
 #: (mask dtype, x dtype): every form moe_dispatch.cu compiles
 DTYPES = [("float32", "float32"), ("bfloat16", "float32"),
           ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
@@ -71,6 +74,21 @@ def test_form_follows_x_dtype(dtype, want):
     # picks its load widths at launch
     assert tmd.form(torch.zeros(8, 130, dtype=dtype)) == want
     assert tmd.form(torch.zeros(8 * 24 + 1, dtype=dtype)[1:]) == want
+
+
+def test_block_tiles_match_the_source():
+    # the wrapper checks the launch grid with each form's capacity tile
+    src = (_build.CSRC / "moe_dispatch.cu").read_text()
+    f32, tc = src.split("namespace f32 {")[1].split("namespace tc {")
+    for form, part in (("simt", f32), ("wgmma", tc)):
+        assert re.findall(r"constexpr int BM = (\d+);", part) == [
+            str(tmd.BM[form])], form
+    assert set(tmd.BM) == set(tmd.FORMS)
+    # both grids put D tiles first, capacity tiles second, experts third
+    for part in (f32, tc):
+        assert re.search(r"grid\(static_cast<unsigned>\(\(D \+ BN - 1\) / BN\),"
+                         r"\s*static_cast<unsigned>\(\(C \+ BM - 1\) / BM\),"
+                         r"\s*static_cast<unsigned>\(E\)\)", part)
 
 
 def test_cpu_calls_count_no_launch_of_either_form():
