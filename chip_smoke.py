@@ -30,9 +30,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    case logs the form it took (matmul: narrow up to 32 columns, wide
    above; row moments: one launch or split; rmsnorm: warp on 16-byte
    units, scalar off the 16-byte grid or for longer rows; flash
-   attention: wgmma for bf16 at head width 64 or 128, tiled for f32 at
-   those widths, simt at any other; MoE dispatch: wgmma for bf16 x, simt
-   for f32 x), each bitonic sort case its passes, and each row
+   attention: wgmma for bf16 at any head width, with the width it is
+   padded to (64, 128, 192 or 256), tiled for f32 at 64 and 128, simt
+   for f32 at any other; MoE dispatch: wgmma for bf16 x, simt for f32
+   x), each bitonic sort case its passes, and each row
    moments and rmsnorm case is held bit-equal across two calls; each
    rmsnorm case also times ``copy_`` of its input (events and device ms),
    the card's read-and-write ceiling for the same bytes;
@@ -121,14 +122,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    matmul, row moments or bitonic sort never launched;
 6g. scenarios: the cluster scenarios (``repro_torch.bench.scenario_matrix``
    with ``--substrate hopper`` at the reference's defaults, scale 0.2,
-   8 iterations, scenarios single, dp2, dp4 and dp2_mp2), each run a
+   8 iterations, over scenarios single, dp2, dp4 and dp2_mp2, K-means'
+   re-tune over single, dp2 and dp2_mp2), each run a
    child process of ``SCENARIO_RANKS`` (4) ranks that share the card,
    gloo between them, so every rank's launch counters start at 0
    (``SCENARIO_RUNS``: K-means re-tuned under each mesh with the
-   population bench and ``--check``, alone; then PageRank re-tuned the
-   same way and TeraSort with ``--check`` beside AlexNet and
-   Inception-V3 without it, their steps not splitting on every mesh at
-   that scale; each run its own group of ranks, its output logged when
+   population bench and ``--check``, PageRank and TeraSort with
+   ``--check``, AlexNet and Inception-V3 without it, their steps not
+   splitting on every mesh at that scale; the four runs start together
+   before phase 6 and run beside phases 6, 6c and 6e, whose gates time
+   nothing; each run its own group of ranks, its output logged when
    it ends).  Logs each cell's collective
    bytes by kind for the step and the proxy and how each wall was
    taken, and each rank's launches and device-memory peak.  Fails if a
@@ -205,7 +208,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the flash backward), counters zeroed just before and read just
    after.  (a) tinyllama-1.1b at full width and depth (22 layers,
    1,100,048,384 f32 params from a seed, bf16 activations, remat, AdamW
-   under ``warmup_cosine``): one warm-up step and ``TRAIN_STEPS`` (6)
+   under ``warmup_cosine``): one warm-up step and ``TRAIN_STEPS`` (3)
    timed steps of 8 x 2048 tokens from ``synthetic_lm_batch`` through
    ``DataPipeline`` and ``make_train_step``, then one step under the
    profiler; fails on a non-finite loss or grad norm, a step-0 loss more
@@ -225,7 +228,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6k. pod: the dry run and data-parallel training (``repro_torch.launch.
    dryrun``, ``launch.train`` over ranks).  (a) ``launch.train.train``
    at ``bench/train_lm``'s configuration (qwen3-4b reduced 6 x,
-   24,511,266 params, 8 x 256 tokens) for 20 steps in f32 over 4 gloo
+   24,511,266 params, 8 x 256 tokens) for 8 steps in f32 over 4 gloo
    ranks sharing the card, at meshes (4, 1) and (2, 2), the two groups
    at once: each rank's losses and rank 0's gathered final params
    within ``POD_TOL`` of one rank's run of the same steps on the card;
@@ -320,6 +323,31 @@ TOL = {
 }
 #: bf16 flash attention's allowance per unit of attention over |v|
 P_ROUNDING = 2.0 ** -7
+
+#: phase 2's small bf16 flash attention cases (q shape, k/v shape,
+#: causal), all on the wgmma form: D = 64, 128, 192 and 256 ragged under
+#: both masks with Sq below and above Skv, and widths padded to the next
+#: compiled one (96 and 80 to 128, 32 and 33 to 64, 100 to 128)
+FLASH_BF16_SMALL = tuple(
+    [((2, 130, 4, 64), (2, 130, 4, 64), True),
+     ((2, 130, 4, 64), (2, 130, 4, 64), False),
+     ((1, 257, 2, 128), (1, 257, 2, 128), True),
+     ((1, 257, 2, 128), (1, 257, 2, 128), False),
+     ((2, 64, 4, 64), (2, 130, 4, 64), True),
+     ((1, 300, 2, 128), (1, 200, 2, 128), True),
+     ((1, 130, 2, 128), (1, 257, 2, 128), False)]
+    + [(qs + (d,), kvs + (d,), causal) for d in (192, 256)
+       for qs, kvs, causal in (((1, 257, 2), (1, 257, 2), True),
+                               ((1, 257, 2), (1, 257, 2), False),
+                               ((1, 130, 2), (1, 257, 2), True),
+                               ((1, 300, 2), (1, 200, 2), True),
+                               ((1, 130, 2), (1, 257, 2), False))]
+    + [((1, 100, 2, 96), (1, 100, 2, 96), True),
+       ((2, 130, 4, 32), (2, 130, 4, 32), True),
+       ((1, 257, 2, 80), (1, 257, 2, 80), True),
+       ((1, 257, 2, 100), (1, 257, 2, 100), True),
+       ((1, 130, 2, 100), (1, 200, 2, 100), False),
+       ((1, 100, 2, 33), (1, 100, 2, 33), True)])
 
 #: small MoE dispatch shapes (T, E, C, D): aligned one-tile, C and D
 #: ragged inside 16-byte rows across two tiles each, a T that is not a
@@ -695,6 +723,8 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         q, k, v, causal = args
         fa = flash_attention.flash_attention
         row["form"] = flash_attention.form(q)
+        if row["form"] == "wgmma":
+            row["padded_width"] = flash_attention.padded_width(q.shape[-1])
         call = lambda: fa(q, k, v, causal=causal)  # noqa: E731
         got = launch_form(row, fa, call)
         want = ref.flash_attention(q, k, v, causal)
@@ -795,6 +825,8 @@ def fmt_row(r: dict) -> str:
             else "")
     if "mask_dtype" in r:
         form = f" [{r['mask_dtype']} mask, {r['form']}]"
+    elif "padded_width" in r:
+        form = f" [{r['form']}, D padded to {r['padded_width']}]"
     else:
         form = f" [{r['form']}]" if "form" in r else ""
     if "passes" in r:
@@ -816,7 +848,9 @@ def entry_point_cases(torch, dev, full: bool):
     (``src/repro/configs/qwen3_4b.py``) at the train_4k length,
     tinyllama-1.1b's head_dim 64 (f32 and bf16 at both widths), the
     prefill attention of deepseek-v2-lite-16b's MLA (16 heads of 192, its
-    nope 128 + rope 64 dims; the generic SIMT form), and its MoE group
+    nope 128 + rope 64 dims; bf16 on the tensor cores, and f32, the
+    generic SIMT form), gemma2-9b's 16 heads of 256
+    (``configs/gemma2_9b.py``; bf16), and its MoE group
     (``configs/deepseek_v2_lite_16b.py``: group 4096, 64 experts, d_model
     2048, 6 experts a token at capacity factor 1.25, so capacity
     int(4096·6·1.25/64) = 480 by ``models/layers.py:561-563``; the mask
@@ -861,8 +895,6 @@ def entry_point_cases(torch, dev, full: bool):
                               ((1, 100, 2, 96), True)):
             yield "flash_attention", (randn(*shape), randn(*shape),
                                       randn(*shape), causal), 20, False
-        yield "flash_attention", tuple(randn(2, 130, 4, 64, dtype=bf16)
-                                       for _ in range(3)) + (True,), 20, False
         kv = (2, 130, 4, 64)  # Sq != Skv under the causal mask
         yield "flash_attention", (randn(2, 64, 4, 64), randn(*kv),
                                   randn(*kv), True), 20, False
@@ -875,24 +907,22 @@ def entry_point_cases(torch, dev, full: bool):
         yield "flash_attention", tuple(
             randn(n + 1)[1:].view(1, 257, 2, 128)
             for _ in range(3)) + (True,), 20, False
-        # bf16: the wgmma form at D = 64 and 128 (ragged, both masks, Sq
-        # below and above Skv), the SIMT form at D = 96
-        for qs, kvs, causal in (((2, 130, 4, 64), (2, 130, 4, 64), False),
-                                ((1, 257, 2, 128), (1, 257, 2, 128), True),
-                                ((1, 257, 2, 128), (1, 257, 2, 128), False),
-                                ((2, 64, 4, 64), (2, 130, 4, 64), True),
-                                ((1, 300, 2, 128), (1, 200, 2, 128), True),
-                                ((1, 130, 2, 128), (1, 257, 2, 128), False),
-                                ((1, 100, 2, 96), (1, 100, 2, 96), True)):
+        # bf16, all on the wgmma form: D = 64 to 256 at the compiled
+        # widths (ragged, both masks, Sq below and above Skv), and widths
+        # padded to the next one up: 96 and 32, 80 (160-byte rows on the
+        # 16-byte grid), 100 (rows off it: the scalar loads, a part
+        # chunk) and 33 (odd: the output value by value)
+        for qs, kvs, causal in FLASH_BF16_SMALL:
             yield "flash_attention", (randn(*qs, dtype=bf16),
                                       randn(*kvs, dtype=bf16),
                                       randn(*kvs, dtype=bf16), causal), 20, \
                 False
         # base pointers off the 16-byte grid: the wgmma form's scalar loads
-        n = 1 * 257 * 2 * 128
-        yield "flash_attention", tuple(
-            randn(n + 1, dtype=bf16)[1:].view(1, 257, 2, 128)
-            for _ in range(3)) + (True,), 20, False
+        for d in (128, 192):
+            n = 1 * 257 * 2 * d
+            yield "flash_attention", tuple(
+                randn(n + 1, dtype=bf16)[1:].view(1, 257, 2, d)
+                for _ in range(3)) + (True,), 20, False
         for t, e, c, d in MOE_SMALL:
             for dtype in (f32, bf16):
                 yield "moe_dispatch", (routed(t, e, c),
@@ -937,7 +967,9 @@ def entry_point_cases(torch, dev, full: bool):
             ((1, 4096, 32, 64), f32, 10, False),
             ((1, 4096, 32, 128), bf16, 10, True),
             ((1, 4096, 32, 64), bf16, 10, False),
-            ((1, 4096, 16, 192), bf16, 5, False)):
+            ((1, 4096, 16, 192), bf16, 10, False),
+            ((1, 4096, 16, 256), bf16, 10, False),
+            ((1, 4096, 16, 192), f32, 5, False)):
         yield "flash_attention", tuple(randn(*shape, dtype=dtype)
                                        for _ in range(3)) + (True,), iters, \
             headline
@@ -1811,17 +1843,24 @@ def phase_case_studies(torch, dev, work: Path) -> dict:
 #: phase 6g's runs of ``repro_torch.bench.scenario_matrix`` (each starts
 #: ``SCENARIO_RANKS`` ranks that share the card, gloo between them), at
 #: the reference's defaults (``--scale 0.2 --iters 8``, the four default
-#: scenarios), in groups whose runs start together (the ranks are
-#: host-bound; two runs of four fill the host's eight cores): (label,
-#: workloads, the run's own flags, whether it runs ``--check``, the
-#: kernels each rank must launch).  K-means' re-tune under each mesh,
-#: the population bench with it, runs in a group of its own, the card
-#: and the host otherwise idle: beside another run its tuned proxy came
-#: out light (7 and 2 ms for 32 candidates on one rank; 34 and 64 ms
-#: otherwise).  Then PageRank's re-tune (its proxy lowers onto no
-#: kernel: construct, degree and minmax are declined), TeraSort's run and
-#: the AI run start together.  Not cut for time: at ``--iters 6`` the
-#: re-tunes took as long (they stop before their budget).  The AI
+#: scenarios): (label, workloads, the run's own flags, whether it runs
+#: ``--check``, the kernels each rank must launch).  The four runs start
+#: together, before phase 6, and run beside phases 6, 6c and 6e, which
+#: gate on no time (the ranks are host-bound, the single-process phases
+#: leave most of the host's cores idle); the phases that gate on a time
+#: (6d's tail latency and telemetry overhead, 6f's batched speedup) run
+#: after they end.  Until then K-means' re-tune ran alone, the card and
+#: the host otherwise idle, since beside another run its tuned proxy
+#: once came out light (7 and 2 ms for 32 candidates on one rank; 34 and
+#: 64 ms otherwise); alone on a slower machine it came out light too (9
+#: and 14 ms), and the phase's 317.5 s there put the whole run near its
+#: limit.  Cut for time as well: K-means re-tunes on one 1-D and one 2-D
+#: mesh (dp2, dp2_mp2; dp4's re-tune was its longest, 36 s), which the
+#: ``--check`` trend gate still covers, and PageRank is not re-tuned (its
+#: proxy lowers onto no kernel: construct, degree and minmax are
+#: declined; its re-tunes took 92 s); every run but K-means' covers dp4.
+#: ``--iters`` is not cut: at ``--iters 6`` the re-tunes took as long
+#: (their impact analysis, not their moves, takes the time).  The AI
 #: workloads run without
 #: ``--check``: at scale 0.2 AlexNet's batch of 25 divides no mesh and
 #: Inception-V3's of 6 not dp4's, so those steps run whole on every rank
@@ -1831,19 +1870,20 @@ def phase_case_studies(torch, dev, work: Path) -> dict:
 #: their other gates itself, and a step whose inputs split must move
 #: collective bytes.
 SCENARIO_RANKS = 4
-SCENARIO_COMMON = ["--scenarios", "single,dp2,dp4,dp2_mp2", "--scale", "0.2",
-                   "--iters", "8"]
+SCENARIO_COMMON = ["--scale", "0.2", "--iters", "8"]
+SCENARIO_ALL = ["--scenarios", "single,dp2,dp4,dp2_mp2"]
 SCENARIO_RUNS = (
-    (("retune", "kmeans", ["--tune-under-mesh", "--pop", "32"],
-      True, MAIN_PATH_KERNELS),),
-    (("retune_pagerank", "pagerank", ["--tune-under-mesh", "--pop", "0"],
-      True, ()),
-     ("terasort", "terasort", ["--pop", "0"], True, ("bitonic_sort",)),
-     ("ai", "alexnet,inception_v3", ["--pop", "0"], False,
-      ("matmul", "row_moments"))),
+    ("retune", "kmeans", ["--scenarios", "single,dp2,dp2_mp2",
+                          "--tune-under-mesh", "--pop", "32"],
+     True, MAIN_PATH_KERNELS),
+    ("pagerank", "pagerank", SCENARIO_ALL + ["--pop", "0"], True, ()),
+    ("terasort", "terasort", SCENARIO_ALL + ["--pop", "0"], True,
+     ("bitonic_sort",)),
+    ("ai", "alexnet,inception_v3", SCENARIO_ALL + ["--pop", "0"], False,
+     ("matmul", "row_moments")),
 )
-#: seconds one scenario run's ranks may take
-SCENARIO_TIMEOUT = 600
+#: seconds the scenario runs' ranks may take, from their start
+SCENARIO_TIMEOUT = 450
 
 
 def population_gate_alone(out: Path, label: str) -> bool:
@@ -1865,10 +1905,45 @@ def population_gate_alone(out: Path, label: str) -> bool:
     return True
 
 
-def phase_scenarios(torch, dev, work: Path) -> dict:
+def start_scenarios(work: Path) -> tuple:
+    """Start every ``SCENARIO_RUNS`` run of ``scenario_matrix --device
+    cuda --substrate hopper`` at once, each its output into ``work``.
+    Returns (the start on the perf clock, ``[(Popen, log path, output
+    path, label, kernels)]``), for :func:`phase_scenarios`."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               REPRO_EMU_DEVICES=str(SCENARIO_RANKS))
+    started, t0 = [], time.perf_counter()
+    for label, workloads, extra, check, kernels in SCENARIO_RUNS:
+        out = work / f"scenario_{label}.json"
+        cmd = ([sys.executable, "-m", "repro_torch.bench.scenario_matrix",
+                "--device", "cuda", "--substrate", "hopper", "--out",
+                str(out), "--timeout", str(SCENARIO_TIMEOUT),
+                "--workloads", workloads] + SCENARIO_COMMON + extra
+               + (["--check"] if check else []))
+        log(f"scenario run {label}: {' '.join(cmd[1:])}")
+        text = work / f"scenario_{label}.log"
+        with open(text, "w") as sink:
+            proc = subprocess.Popen(cmd, env=env, stdout=sink,
+                                    stderr=subprocess.STDOUT)
+        started.append((proc, text, out, label, kernels))
+    return t0, started
+
+
+def stop_scenarios(runs) -> None:
+    """Kill every run of :func:`start_scenarios` that is still going."""
+    for proc, *_ in runs[1]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def phase_scenarios(torch, dev, runs) -> dict:
     """The cluster scenarios: ``scenario_matrix --device cuda --substrate
-    hopper`` (``SCENARIO_RUNS``), each run ``SCENARIO_RANKS`` ranks
-    sharing the card, its launch counters fresh in every rank.  Logs,
+    hopper`` (``SCENARIO_RUNS``, started by :func:`start_scenarios`),
+    each run ``SCENARIO_RANKS`` ranks sharing the card, its launch
+    counters fresh in every rank.  Waits for every run, then logs,
     per workload and scenario, the collective bytes by kind of the step
     and the proxy and how each wall was taken; per rank its kernel
     launches and device-memory peak.  Fails if a run fails its
@@ -1881,43 +1956,24 @@ def phase_scenarios(torch, dev, work: Path) -> dict:
     exactly when its inputs did not split; or if a rank of a run never
     launched a kernel its workloads' proxies lower onto.  Returns ``{kernel:
     {run: [launches per rank]}}``."""
-    import os
-
     launches = {k: {} for k in MAIN_PATH_KERNELS}
-    env = dict(os.environ, PYTHONPATH=str(SRC),
-               REPRO_EMU_DEVICES=str(SCENARIO_RANKS))
+    t0, started = runs
     done = []
-    for group in SCENARIO_RUNS:
-        started, t0 = [], time.perf_counter()
-        for label, workloads, extra, check, kernels in group:
-            out = work / f"scenario_{label}.json"
-            cmd = ([sys.executable, "-m", "repro_torch.bench.scenario_matrix",
-                    "--device", "cuda", "--substrate", "hopper", "--out",
-                    str(out), "--timeout", str(SCENARIO_TIMEOUT),
-                    "--workloads", workloads] + SCENARIO_COMMON + extra
-                   + (["--check"] if check else []))
-            log(f"scenario run {label}: {' '.join(cmd[1:])}")
-            text = work / f"scenario_{label}.log"
-            with open(text, "w") as sink:
-                proc = subprocess.Popen(cmd, env=env, stdout=sink,
-                                        stderr=subprocess.STDOUT)
-            started.append((proc, text, out, label, kernels))
-        try:
-            for proc, text, out, label, kernels in started:
-                rc = proc.wait(timeout=max(
-                    t0 + SCENARIO_TIMEOUT + 60 - time.perf_counter(), 0))
-                log(text.read_text().rstrip())
-                if rc != 0 and not population_gate_alone(out, label):
-                    raise fail(f"scenario_matrix run {label} returned {rc} "
-                               f"after {time.perf_counter() - t0:.1f} s")
-                done.append((label, kernels, out))
-        finally:  # a failed or timed-out run stops the rest of its group
-            for proc, *_ in started:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        log(f"scenario runs {', '.join(r[0] for r in group)}: "
-            f"{time.perf_counter() - t0:.1f} s together")
+    try:
+        for proc, text, out, label, kernels in started:
+            rc = proc.wait(timeout=max(
+                t0 + SCENARIO_TIMEOUT + 60 - time.perf_counter(), 0))
+            log(text.read_text().rstrip())
+            log(f"scenario run {label}: exit {rc} at "
+                f"{time.perf_counter() - t0:.1f} s")
+            if rc != 0 and not population_gate_alone(out, label):
+                raise fail(f"scenario_matrix run {label} returned {rc} "
+                           f"after {time.perf_counter() - t0:.1f} s")
+            done.append((label, kernels, out))
+    finally:  # a failed or timed-out run stops the rest
+        stop_scenarios(runs)
+    log(f"scenario runs {', '.join(r[0] for r in done)}: "
+        f"{time.perf_counter() - t0:.1f} s from their start")
     for label, kernels, out in done:
         doc = json.loads(out.read_text())
         log(f"scenario run {label}: {doc['devices']} ranks")
@@ -1976,7 +2032,7 @@ STRESS_RANKS = 4
 STRESS_TYPED = ("indivisible_mesh", "oversubscribed_mesh",
                 "fault_exhausts_retries")
 #: seconds the stress_matrix run's ranks, and the phase's own group, may take
-STRESS_TIMEOUT = 600
+STRESS_TIMEOUT = 300
 #: (b): the reference test's pipeline (microbatches, rows, width) over
 #: the ``STRESS_RANKS`` ranks as stages, ``tanh(h @ w)`` (and the tree
 #: form ``tanh(h @ w + b)``), against the sequential oracle on one rank:
@@ -2885,7 +2941,7 @@ def phase_model(torch, dev) -> dict:
 TRAIN_NAME = "tinyllama-1.1b"
 TRAIN_SEED = 0
 TRAIN_PARAMS = 1_100_048_384
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 3
 #: random weights: the step-0 loss lies within this of ln(vocab)
 TRAIN_LOSS_BAND = 1.5
 #: (b): the same width at ``MODEL_HOST_LAYERS`` layers in f32, TF32 off,
@@ -3228,20 +3284,21 @@ def phase_train(torch, dev) -> dict:
 
 
 #: phase 6k (a): data-parallel training at ``bench/train_lm``'s
-#: configuration (qwen3-4b reduced 6 x, 8 x 256 tokens, lr 1e-3), 20
-#: steps in f32 compute (TF32 off), over ``POD_RANKS`` gloo ranks sharing
-#: the card at model axis 1 and 2 (meshes (4, 1) and (2, 2)), each held
+#: configuration (qwen3-4b reduced 6 x, 8 x 256 tokens, lr 1e-3), 8
+#: steps (cut from 20 for the whole run's time limit) in f32 compute
+#: (TF32 off), over ``POD_RANKS`` gloo ranks sharing the card at model
+#: axis 1 and 2 (meshes (4, 1) and (2, 2)), each held
 #: to one rank's run of the same steps on the card; checkpoints only the
 #: runner's step-0 anchor and its final save (each a gather of the whole
 #: state through the host), for time
 POD_ARCH = "qwen3-4b"
-POD_TRAIN = dict(steps=20, batch=8, seq=256, reduce=6, lr=1e-3,
+POD_TRAIN = dict(steps=8, batch=8, seq=256, reduce=6, lr=1e-3,
                  ckpt_every=0, dtype="float32", log_every=0)
 POD_PARAMS = 24_511_266
 POD_RANKS = 4
 POD_MODEL_AXES = (1, 2)
 POD_TOL = dict(rtol=1e-4, atol=1e-4)
-POD_TIMEOUT = 300
+POD_TIMEOUT = 180
 #: phase 6k (b): the dry-run runs, (arch, shape, multi-pod), each a
 #: subprocess, beside (a) and (c)
 POD_DRYRUNS = (("qwen3-4b", "train_4k", False),
@@ -3809,29 +3866,36 @@ def main(argv=None) -> int:
     if "main" in phases:
         entries, kmeans_pb = timed("main", phase_main_all, torch, dev)
     launches, path_rows = {}, []
-    if "workloads" in phases:
-        launches, path_rows = timed("workloads", phase_workloads, torch, dev)
     paper_launches, serve_launches, case_launches = {}, {}, {}
     population = {"lane_forms": [], "population_launches": {}}
+    scenario_launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         work = Path(work)
-        if "paper_repro" in phases:
-            paper_launches, proxies = timed(
-                "paper_repro", phase_paper_repro, torch, dev,
-                str(work / "sweep_store"))
-        if "case_studies" in phases:
-            case_launches = timed("case_studies", phase_case_studies, torch,
-                                  dev, work)
+        # the scenario runs' ranks run beside the phases up to their wait
+        runs = start_scenarios(work) if "scenarios" in phases else None
+        try:
+            if "workloads" in phases:
+                launches, path_rows = timed("workloads", phase_workloads,
+                                            torch, dev)
+            if "paper_repro" in phases:
+                paper_launches, proxies = timed(
+                    "paper_repro", phase_paper_repro, torch, dev,
+                    str(work / "sweep_store"))
+            if "case_studies" in phases:
+                case_launches = timed("case_studies", phase_case_studies,
+                                      torch, dev, work)
+            if runs is not None:
+                scenario_launches = timed("scenarios", phase_scenarios,
+                                          torch, dev, runs)
+        finally:
+            if runs is not None:
+                stop_scenarios(runs)
         if "population" in phases:
             population = timed("population", phase_population, torch, dev,
                                kmeans_pb, work)
         if "serve" in phases:
             serve_launches = timed("serve", phase_serve, torch, dev, work,
                                    proxies)
-        scenario_launches = {}
-        if "scenarios" in phases:
-            scenario_launches = timed("scenarios", phase_scenarios, torch,
-                                      dev, work)
         stress_launches = {}
         if "stress" in phases:
             stress_launches = timed("stress", phase_stress, torch, dev, work)

@@ -13,7 +13,7 @@
 // products, not the reads, are the floor: 67 TFLOP/s in f32, 989 in bf16
 // on the tensor cores.
 //
-// Both forms keep the reference's function: scores in f32 scaled by
+// Every form keeps the reference's function: scores in f32 scaled by
 // 1/sqrt(D); masked scores never win and weigh an exact 0 (a padded key
 // past Skv included); the causal mask keeps key index <= query index, both
 // from 0 (top-left aligned, also when Sq != Skv); the running max m,
@@ -25,23 +25,29 @@
 // offsets); under the causal mask the key tiles wholly past a query tile
 // are never read, and the heaviest query tiles are launched first.
 //
-// bf16 at D = 64 and 128: wgmma on the tensor cores (wgmma.cuh).  A block
-// of two warpgroups takes 128 queries, 64 a warpgroup.  The q tile is
-// loaded once; tiles of BK keys of k and v (64 at D = 64, 128 at D = 128)
-// stream through a ring of 3 slots filled with 16-byte cp.async, two
-// tiles ahead of the tensor cores, one barrier a tile.  Per key tile each
-// warpgroup runs S = Q·Kᵀ (m64nBKk16, D/16 steps, both operands from
+// bf16 at every D from 1 to 256: wgmma on the tensor cores (wgmma.cuh),
+// compiled for padded widths DP = 64, 128, 192 and 256; a D between runs
+// at the next one up, D a run-time value.  A full-width head at DP = 64
+// or 128 runs a second copy with D fixed at compile time, as fast as the
+// forms compiled for those widths alone, where the run-time copy is 38 %
+// and 5 % slower (PERF.md §6).  A block of two warpgroups takes 128
+// queries, 64 a warpgroup.  The q tile is loaded once; tiles of BK keys
+// of k and v stream through a ring of slots filled with 16-byte cp.async,
+// one barrier a tile: 64 keys in 3 slots at DP = 64 and 192, 128 keys in
+// 3 slots at 128, 64 keys in 2 slots at 256.  Per key tile each
+// warpgroup runs S = Q·Kᵀ (m64nBKk16, DP/16 steps, both operands from
 // shared memory), the online softmax on the S fragment in registers, and
-// O += P·V (m64nDk16, BK/16 steps, P from registers).  What the design
-// does about each hazard:
+// O += P·V (m64nDPk16, BK/16 steps, P from registers).
+// What the design does about each hazard:
 //  1. K-major operands: q and k rows are contiguous along d, the
 //     contraction of Q·Kᵀ, so both are staged K-major (wgmma.cuh's
 //     128-byte swizzle with 64 d values a row, imm-trans 0, SBO 1024
-//     bytes, k16 steps 32 bytes apart inside an atom, the second 64-wide
-//     d atom rows·128 bytes on).  v is contiguous along d, the N of P·V:
-//     MN-major, read transposed (imm-trans-b 1), LBO the d-atom stride.
+//     bytes, k16 steps 32 bytes apart inside an atom, each further
+//     64-wide d atom rows·128 bytes on).  v is contiguous along d, the N
+//     of P·V: MN-major, read transposed (imm-trans-b 1), LBO the d-atom
+//     stride, BK·128 bytes, for 1 to 4 atoms.
 //  2. Instruction shapes: m64nBKk16 with both operands in shared memory
-//     for S, m64nDk16 with A from registers for O (N = 64 or 128 each).
+//     for S, m64nDPk16 with A from registers for O (N = 64 to 256).
 //  3. P as an A operand: the S accumulator's columns 16j..16j+15 are the
 //     j-th k16 step's A fragment, packed pairwise (d[8j + 2r],
 //     d[8j + 2r + 1]) into register r after rounding to bf16; P never
@@ -50,22 +56,30 @@
 //     cp.async or st.shared, then __syncthreads() and fence.proxy.async
 //     precede its wgmma; the S, O and P registers are fenced around each
 //     group and P stays live until its group retires.
-//  5. Ragged edges: keys past Skv and queries past Sq are zero-filled in
-//     the loads (cp.async with source size 0); masked scores become -inf,
+//  5. Ragged edges: keys past Skv, queries past Sq and d columns past D
+//     are zero-filled in the loads (cp.async with source size 0), so a
+//     padded column adds exact zeros to q·k; masked scores become -inf,
 //     so their p is exactly 0 even in a row whose whole tile is masked,
 //     and the running max stays finite (it starts at -1e30).  Rows past
-//     Sq are computed but not stored.  Only the tiles on the causal
-//     diagonal and past Skv are masked.
-//  6. Alignment: at D = 64 or 128 a row is a multiple of 128 bytes, so a
-//     16-byte load is legal wherever the base pointer is 16-byte aligned;
-//     the launch checks each base and the kernel keeps a scalar path.
-//  7. Shared memory and registers: 225 KB a block at D = 128 (q 32 KB, k
-//     and v 64 KB a slot), 65 KB at D = 64, so every launch raises the
-//     function's dynamic limit; a refused launch returns its status.  A
-//     thread holds BK/2 S, D/2 O and BK/4 P registers; one block of 256
-//     threads an SM leaves 255 a thread (ptxas reports spills).
-//  8. The query tile: 128 rows here, 64 in the SIMT form; the wrapper
-//     counts the grid with the form's own tile.
+//     Sq and columns past D are computed but not stored.  Only the tiles
+//     on the causal diagonal and past Skv are masked.
+//  6. Alignment: a row starts on the 16-byte grid wherever its base does
+//     only when D % 8 == 0 (rows are H·D·2 bytes apart, heads D·2), so
+//     the launch takes 16-byte loads for an operand whose base is aligned
+//     and whose D is a multiple of 8, else 2-byte loads and 16-byte
+//     stores; the output is stored in bf16 pairs when D is even, else
+//     value by value.
+//  7. Shared memory and registers: q takes 256·DP bytes and a slot of k
+//     and v 4·BK·DP, 66 KB a block at DP = 64, 225 KB at 128, 193 KB at
+//     192 and at 256 (three slots of 64 keys would take 257 KB there, and
+//     BK = 128 at 192 240 KB in two slots), under the 227 KB a block may
+//     take (a static_assert); every launch raises the function's dynamic
+//     limit and a refused launch returns its status.  A thread holds BK/2
+//     S, DP/2 O and BK/4 P registers (32 + 128 + 16 at DP = 256); one
+//     block of 256 threads an SM leaves 255 a thread (ptxas reports
+//     spills).
+//  8. The query tile: 128 rows here and in the tiled form, 64 in the
+//     SIMT form; the wrapper counts the grid with the form's own tile.
 // Left out on purpose: TMA, warp specialisation and setmaxnreg, clusters,
 // a persistent scheduler, and overlapping one tile's softmax with the
 // next tile's products inside a warpgroup.
@@ -111,13 +125,13 @@
 // key tile per width, and the loops' unrolling, are the fastest of those
 // timed on the card that ptxas compiles without spilling.
 //
-// bf16 at any other D up to 256, and f32 at other widths: SIMT FMA.  One
-// 256-thread block per (b·h, 64-query tile); the q tile is staged once in
-// shared memory as f32 and 64-key tiles of k and v stream through shared
-// memory.  Each thread owns a 4x4 block of the 64x64 score tile and a
-// 4x(D/16) block of the accumulator; the row max and sum go through a
-// 16-lane shuffle; p goes through shared memory for the PV product.  The
-// head width is a run-time value.
+// f32 at any other D up to 256: SIMT FMA.  One 256-thread block per
+// (b·h, 64-query tile); the q tile is staged once in shared memory and
+// 64-key tiles of k and v stream through shared memory.  Each thread owns
+// a 4x4 block of the 64x64 score tile and a 4x(D/16) block of the
+// accumulator; the row max and sum go through a 16-lane shuffle; p goes
+// through shared memory for the PV product.  The head width is a run-time
+// value.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -162,10 +176,9 @@ __host__ __device__ constexpr int64_t smem_floats(int d) {
 }
 
 // any head width up to MAX_D, given at run time
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int64_t Sq,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int64_t Sq,
              int64_t Skv, int64_t H, int D, float scale, bool causal) {
   constexpr int DJ = MAX_D / TX;  // output columns a thread, at most
   const int DP = D + 1;  // padded row: conflict-free column reads
@@ -183,15 +196,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t h = bh % H;
   const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
   const int64_t row = H * D;  // stride between sequence positions
-  const T* qb = q + (b * Sq * H + h) * D;
-  const T* kb = k + (b * Skv * H + h) * D;
-  const T* vb = v + (b * Skv * H + h) * D;
-  T* ob = out + (b * Sq * H + h) * D;
+  const float* qb = q + (b * Sq * H + h) * D;
+  const float* kb = k + (b * Skv * H + h) * D;
+  const float* vb = v + (b * Skv * H + h) * D;
+  float* ob = out + (b * Sq * H + h) * D;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D;
     const int d = e % D;
-    qs[r * DP + d] = q0 + r < Sq ? to_f32(qb[(q0 + r) * row + d]) : 0.0f;
+    qs[r * DP + d] = q0 + r < Sq ? qb[(q0 + r) * row + d] : 0.0f;
   }
 
   float m[RQ], l[RQ], acc[RQ][DJ];
@@ -212,8 +225,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / D;
       const int d = e % D;
       const bool in = k0 + r < Skv;  // zeros past Skv: 0·p stays 0
-      ks[r * DP + d] = in ? to_f32(kb[(k0 + r) * row + d]) : 0.0f;
-      vs[r * D + d] = in ? to_f32(vb[(k0 + r) * row + d]) : 0.0f;
+      ks[r * DP + d] = in ? kb[(k0 + r) * row + d] : 0.0f;
+      vs[r * D + d] = in ? vb[(k0 + r) * row + d] : 0.0f;
     }
     __syncthreads();
 
@@ -254,7 +267,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < RK; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
         psum += p;
-        ps[qr * (BK + 1) + tx + j * TX] = to_f32(from_f32<T>(p));
+        ps[qr * (BK + 1) + tx + j * TX] = p;
       }
       const float corr = expf(m[i] - m_new);
       l[i] = l[i] * corr + half_warp_sum(psum);
@@ -288,27 +301,26 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + j * TX;
       if (d >= D) break;
-      ob[qidx * row + d] = from_f32<T>(acc[i][j] * inv_l);
+      ob[qidx * row + d] = acc[i][j] * inv_l;
     }
   }
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D, float scale,
            bool causal, cudaStream_t s) {
   const size_t bytes = sizeof(float) * smem_floats(D);
-  // once per type: allow its largest shared-memory footprint
+  // once: allow the largest shared-memory footprint
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(sizeof(float) * smem_floats(MAX_D)));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>((Sq + BQ - 1) / BQ));
-  flash_kernel<T><<<grid, THREADS, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, D, scale,
-      causal);
+  flash_kernel<<<grid, THREADS, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, D,
+      scale, causal);
   return launch_status();
 }
 
@@ -564,19 +576,24 @@ namespace tc {
 
 constexpr int BQ = 128;  // queries a block: two warpgroups of 64
 constexpr int THREADS = 256;
+constexpr int SMEM_LIMIT = 232448;  // the most a block may take, 227 KB
 
-// Tiles by head width, the fastest of those timed on the card (PERF.md
-// §6): 64 keys a tile at D = 64, 128 at D = 128, in a ring of 3 slots, one
-// block an SM (two blocks of the D = 64 form an SM were no faster).
-template <int D>
+// Tiles by padded head width DP, the fastest of those timed on the card
+// that fit (PERF.md §6): 64 keys a tile at DP = 64 and 192, 128 at 128, in
+// a ring of 3 slots, and 64 keys in 2 slots at 256; one block an SM (two
+// blocks of the DP = 64 form an SM were no faster).
+template <int DP>
 struct Shape {
-  static constexpr int BK = D == 64 ? 64 : 128;  // keys a tile
-  static constexpr int STAGES = 3;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // one of k, v
+  static_assert(DP == 64 || DP == 128 || DP == 192 || DP == 256,
+                "the wgmma form takes DP = 64, 128, 192 or 256");
+  static constexpr int BK = DP == 128 ? 128 : 64;  // keys a tile
+  static constexpr int STAGES = DP == 256 ? 2 : 3;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;  // one of k, v
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // k then v
   static constexpr int SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES + 1024;
-  static_assert(D == 64 || D == 128, "the wgmma form takes D = 64 or 128");
+  static_assert(SMEM_BYTES <= SMEM_LIMIT, "past the shared memory a block "
+                                          "may take");
 };
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -590,23 +607,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ROWS rows of D bf16 (row r at src + (r0 + r)·stride) -> a 128-byte-
-// swizzled tile at smem (shared-window address) / smem_p (generic), zero
-// past row n.  16-byte cp.async when the base is 16-byte aligned (vec),
-// else 2-byte loads and 16-byte stores.  Neighbouring threads take
-// neighbouring 16-byte chunks of a row.
-template <int ROWS, int D>
+// swizzled tile DP wide at smem (shared-window address) / smem_p
+// (generic), zero past row n and past column D.  16-byte cp.async when
+// every row starts on the 16-byte grid (vec), else 2-byte loads and
+// 16-byte stores.  Neighbouring threads take neighbouring 16-byte chunks
+// of a row.
+template <int ROWS, int DP>
 __device__ __forceinline__ void load_rows(uint32_t smem, uint8_t* smem_p,
                                           const __nv_bfloat16* src,
                                           int64_t stride, int64_t r0,
-                                          int64_t n, bool vec, int tid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks a row
+                                          int64_t n, int D, bool vec,
+                                          int tid) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks a row
   static_assert(ROWS * CPR % THREADS == 0, "tile shape");
 #pragma unroll
   for (int j = 0; j < ROWS * CPR / THREADS; ++j) {
     const int i = tid + j * THREADS;
     const int r = i / CPR, c = (i % CPR) * 8;
-    const bool in = r0 + r < n;
-    const __nv_bfloat16* p = src + (in ? r0 + r : 0) * stride + c;
+    const bool in_row = r0 + r < n;
+    const bool in = in_row && c < D;
+    const __nv_bfloat16* p =
+        src + (in_row ? r0 + r : 0) * stride + (c < D ? c : 0);
     const uint32_t off = wg::sw128_offset(c, r, ROWS);
     if (vec) {
       wg::cp_async16(smem + off, p, in);
@@ -615,23 +636,27 @@ __device__ __forceinline__ void load_rows(uint32_t smem, uint8_t* smem_p,
       if (in) {
         const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          w[e] = h[2 * e] | (static_cast<uint32_t>(h[2 * e + 1]) << 16);
+        for (int e = 0; e < 8; ++e)
+          if (c + e < D)
+            w[e / 2] |= static_cast<uint32_t>(h[e]) << (16 * (e % 2));
       }
       *reinterpret_cast<uint4*>(smem_p + off) = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }
 
-template <int D>
+// FIXED_D: the head width is DP, known at compile time; else it is d,
+// from 1 to DP, given at run time
+template <int DP, bool FIXED_D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma(const __nv_bfloat16* __restrict__ q,
             const __nv_bfloat16* __restrict__ k,
             const __nv_bfloat16* __restrict__ v,
             __nv_bfloat16* __restrict__ out, int64_t Sq, int64_t Skv,
-            int64_t H, float scale_log2, int causal, int q_vec, int k_vec,
-            int v_vec) {
-  using S = Shape<D>;
+            int64_t H, int d, float scale_log2, int causal, int q_vec,
+            int k_vec, int v_vec, int o_pair) {
+  const int D = FIXED_D ? DP : d;
+  using S = Shape<DP>;
   constexpr int BK = S::BK;
   constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -664,22 +689,23 @@ flash_wgmma(const __nv_bfloat16* __restrict__ q,
     const int s = kt % STAGES;
     const uint32_t ks = ring + s * S::STAGE_BYTES;
     uint8_t* const ks_p = ring_p + s * S::STAGE_BYTES;
-    load_rows<BK, D>(ks, ks_p, kb, row, int64_t{kt} * BK, Skv, k_vec, tid);
-    load_rows<BK, D>(ks + S::KV_BYTES, ks_p + S::KV_BYTES, vb, row,
-                     int64_t{kt} * BK, Skv, v_vec, tid);
+    load_rows<BK, DP>(ks, ks_p, kb, row, int64_t{kt} * BK, Skv, D, k_vec,
+                      tid);
+    load_rows<BK, DP>(ks + S::KV_BYTES, ks_p + S::KV_BYTES, vb, row,
+                      int64_t{kt} * BK, Skv, D, v_vec, tid);
   };
 
   // the ring: tile kt sits in slot kt % STAGES; the q tile rides in the
   // first group
-  load_rows<BQ, D>(qs, qs_p, qb, row, q0, Sq, q_vec, tid);
+  load_rows<BQ, DP>(qs, qs_p, qb, row, q0, Sq, D, q_vec, tid);
   for (int kt = 0; kt < STAGES - 1; ++kt) {
     if (kt < KT) load_kv(kt);
     wg::cp_async_commit();
   }
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
   float m[2] = {-1e30f, -1e30f};  // running max, in log2 units
   float l[2] = {0.0f, 0.0f};      // this thread's share of the row sums
 
@@ -699,7 +725,7 @@ flash_wgmma(const __nv_bfloat16* __restrict__ q,
     float sc[BK / 2];
     wg::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
       const uint64_t da = wg::desc_sw128(
           qs + warpgroup * 64 * 128 + wg::kmajor_k16(kk, BQ), 16,
           wg::GROUP_BYTES);
@@ -752,7 +778,7 @@ flash_wgmma(const __nv_bfloat16* __restrict__ q,
       }
       l[hh] = l[hh] * corr + sum;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DP / 8; ++i) {
         o[4 * i + 2 * hh] *= corr;
         o[4 * i + 2 * hh + 1] *= corr;
       }
@@ -771,7 +797,7 @@ flash_wgmma(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < BK / 16; ++j) {
       const uint64_t db = wg::desc_sw128(vs + j * 16 * 128, BK * 128,
                                          wg::GROUP_BYTES);
-      wg::mma_rs_mn<D>(o, pa[j], db);
+      wg::mma_rs_mn<DP>(o, pa[j], db);
     }
     wg::wgmma_commit();
     wg::wgmma_wait<0>();
@@ -780,7 +806,8 @@ flash_wgmma(const __nv_bfloat16* __restrict__ q,
   }
 
   // epilogue: the row sums over the quad, then O / max(l, 1e-30) straight
-  // from the fragment, bf16 pairs, rows past Sq dropped
+  // from the fragment, bf16 pairs (value by value where o_pair is 0),
+  // rows past Sq and columns past D dropped
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float lsum = l[hh];
@@ -790,33 +817,53 @@ flash_wgmma(const __nv_bfloat16* __restrict__ q,
     const int64_t qi = wq0 + wg::frag_row(t, hh);
     if (qi >= Sq) continue;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(ob + qi * row + wg::frag_col(t, i)) =
-          __floats2bfloat162_rn(o[4 * i + 2 * hh] * inv_l,
-                                o[4 * i + 2 * hh + 1] * inv_l);
+    for (int i = 0; i < DP / 8; ++i) {
+      const int c = wg::frag_col(t, i);
+      const float x0 = o[4 * i + 2 * hh] * inv_l;
+      const float x1 = o[4 * i + 2 * hh + 1] * inv_l;
+      __nv_bfloat16* const p = ob + qi * row + c;
+      if (o_pair && c + 1 < D) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (c < D) p[0] = __float2bfloat16_rn(x0);
+        if (c + 1 < D) p[1] = __float2bfloat16_rn(x1);
+      }
+    }
   }
 }
 
-template <int D>
+// D from 1 to DP: the padded width DP is the dispatch's
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
-           int64_t Sq, int64_t Skv, int64_t H, float scale, bool causal,
-           cudaStream_t s) {
-  // rows are D·2 bytes apart (a multiple of 16), so a base decides
-  const auto aligned = [](const void* p) {
-    return static_cast<int>(reinterpret_cast<uintptr_t>(p) % 16 == 0);
+           int64_t Sq, int64_t Skv, int64_t H, int D, float scale,
+           bool causal, cudaStream_t s) {
+  // rows are H·D·2 bytes apart and heads D·2, so every row lies on the
+  // 16-byte grid when the base does and D % 8 == 0; bf16 pairs need an
+  // even D, as out is the wrapper's fresh tensor, whose base the caching
+  // allocator puts on its 512-byte grid
+  const auto aligned = [D](const void* p) {
+    return static_cast<int>(D % 8 == 0 &&
+                            reinterpret_cast<uintptr_t>(p) % 16 == 0);
   };
+  const int o_pair = D % 2 == 0;
+  // D fixed at compile time only at DP = 64 and 128, where it measured
+  // faster (the header)
+  auto kernel = flash_wgmma<DP, false>;
+  if constexpr (DP <= 128)
+    if (D == DP) kernel = flash_wgmma<DP, true>;
   // per launch, so it holds on whichever device is current
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Shape<D>::SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Shape<DP>::SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>((Sq + BQ - 1) / BQ));
-  flash_wgmma<D><<<grid, THREADS, Shape<D>::SMEM_BYTES, s>>>(
+  kernel<<<grid, THREADS, Shape<DP>::SMEM_BYTES, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Skv, H, scale * LOG2E, causal, aligned(q), aligned(k), aligned(v));
+      Sq, Skv, H, D, scale * LOG2E, causal, aligned(q), aligned(k),
+      aligned(v), o_pair);
   return launch_status();
 }
 
@@ -827,15 +874,18 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* out,
                  float scale, bool causal, cudaStream_t s) {
   if (D == 64) return tiled::launch<64>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
   if (D == 128) return tiled::launch<128>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
-  return launch<float>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  return launch(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
 }
 
+// every D from 1 to 256 at the next padded width up, as the wrapper's
+// flash_attention.padded_width
 int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
                   int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D,
                   float scale, bool causal, cudaStream_t s) {
-  if (D == 64) return tc::launch<64>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
-  if (D == 128) return tc::launch<128>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
-  return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  if (D <= 64) return tc::launch<64>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  if (D <= 128) return tc::launch<128>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  if (D <= 192) return tc::launch<192>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  return tc::launch<256>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
 }
 
 }  // namespace

@@ -9,9 +9,11 @@ single-slice kernel.  A signature profile sees one dot-class op with
 4·D flops for every (query, key) pair the mask keeps.  A tensor on the
 CPU runs the plain version (``ref.flash_attention``); a CUDA tensor
 launches the kernel or raises.  :func:`form` names the kernel's form
-(tensor cores for bf16 at head width 64 or 128, register-tiled FMA for
-f32 at those widths, SIMT FMA at any other; the kernel picks its own load
-widths) and ``flash_attention.forms`` counts launches per form.
+(tensor cores for bf16 at every head width, compiled for the widths
+``WGMMA_D`` with a narrower head zero-padded to the next one up
+(:func:`padded_width`); register-tiled FMA for f32 at head width 64 or
+128; SIMT FMA for f32 at any other; the kernel picks its own load widths)
+and ``flash_attention.forms`` counts launches per form.
 
 The causal mask keeps ``k_idx <= q_idx`` with both indices counted from
 0, top-left aligned as in the reference, also when ``Sq != Skv``.
@@ -29,10 +31,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 #: (``flash_attention.py``), mirrored in ``csrc/flash_attention.cu``
 NEG_INF = -1e30
 L_FLOOR = 1e-30
-#: widest head the kernel takes (64 and 128 have their own compiled forms)
+#: widest head the kernel takes
 MAX_D = 256
-#: head widths of the tensor-core form (bf16) and of the tiled form (f32)
-WGMMA_D = (64, 128)
+#: the widths the tensor-core form (bf16) is compiled for, and the head
+#: widths of the tiled form (f32)
+WGMMA_D = (64, 128, 192, 256)
 TILED_D = (64, 128)
 FORMS = ("wgmma", "tiled", "simt")
 #: query tile of each form; the grid's second dimension counts them
@@ -41,15 +44,23 @@ MAX_GRID_Y = 65535
 MAX_GRID_X = (1 << 31) - 1
 
 
+def padded_width(d: int) -> int:
+    """The width of ``WGMMA_D`` a bf16 head of width d runs at: the
+    narrowest one that holds it, the columns past d zero-filled."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"flash_attention takes head widths 1..{MAX_D}, "
+                         f"got {d}")
+    return next(w for w in WGMMA_D if w >= d)
+
+
 def form(q: torch.Tensor) -> str:
-    """The kernel form a CUDA call on q runs: "wgmma" (bf16 at head width
-    64 or 128, tensor cores), "tiled" (f32 at 64 or 128: FMA, 128
-    queries a block, 8 a thread in registers) or "simt" (any other width:
-    FMA in f32, 64 queries a block)."""
-    d = q.shape[-1]
-    if q.dtype == torch.bfloat16 and d in WGMMA_D:
+    """The kernel form a CUDA call on q runs: "wgmma" (bf16 at any head
+    width, tensor cores, 128 queries a block), "tiled" (f32 at 64 or 128:
+    FMA, 128 queries a block, 8 a thread in registers) or "simt" (f32 at
+    any other width: FMA, 64 queries a block)."""
+    if q.dtype == torch.bfloat16:
         return "wgmma"
-    return "tiled" if q.dtype == torch.float32 and d in TILED_D else "simt"
+    return "tiled" if q.shape[-1] in TILED_D else "simt"
 
 
 def kept_pairs(sq: int, skv: int, causal: bool) -> int:

@@ -262,10 +262,12 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
-    # D = 64 and 128: the wgmma form in bf16, the tiled form (128 queries
-    # a block) in f32; D = 96 the generic SIMT form; ragged Skv; Sq below
-    # and above Skv under the causal mask; Sq past two query tiles; Skv
-    # past Sq; bases off the 16-byte grid (scalar loads)
+    # bf16 takes the wgmma form at every width: 64, 128, 192 and 256, and
+    # 96, 80 (rows on the 16-byte grid) and 100 (off it) padded to 128, 32
+    # and 33 (odd) to 64; f32 the tiled form (128 queries a block) at 64
+    # and 128 and the generic SIMT form at every other width; ragged Skv;
+    # Sq below and above Skv under the causal mask; Sq past two query
+    # tiles; Skv past Sq; bases off the 16-byte grid (scalar loads)
     tops.reset_launches()
     calls = {"wgmma": 0, "tiled": 0, "simt": 0}
     cases = [((2, 130, 4, 64), (2, 130, 4, 64), 0),
@@ -276,7 +278,16 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
              ((1, 257, 2, 128), (1, 257, 2, 128), 1),
              ((2, 260, 2, 64), (2, 260, 2, 64), 0),
              ((1, 130, 2, 128), (1, 257, 2, 128), 0),
-             ((1, 257, 2, 64), (1, 257, 2, 64), 1)]
+             ((1, 257, 2, 64), (1, 257, 2, 64), 1),
+             ((1, 257, 2, 192), (1, 257, 2, 192), 0),
+             ((1, 300, 2, 192), (1, 200, 2, 192), 0),
+             ((1, 130, 2, 192), (1, 257, 2, 192), 1),
+             ((1, 257, 2, 256), (1, 257, 2, 256), 0),
+             ((1, 130, 2, 256), (1, 257, 2, 256), 0),
+             ((2, 130, 4, 32), (2, 130, 4, 32), 0),
+             ((1, 257, 2, 80), (1, 257, 2, 80), 0),
+             ((1, 130, 2, 100), (1, 200, 2, 100), 0),
+             ((1, 100, 2, 33), (1, 100, 2, 33), 0)]
     for qs, kvs, offset in cases:
         q, k, v = (to_torch(np_rand(seed, (offset + n,), "float32"), dtype)
                    .to(cuda_device)[offset:].view(shape)
@@ -290,12 +301,14 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
                 **FLASH_TOL[dtype])
             calls[tfa.form(q)] += 1
     assert tops.flash_attention.forms == calls
-    # D = 64 and 128 took the tensor cores in bf16 and the tiled form in
-    # f32, D = 96 the generic SIMT form
-    wide = 2 * sum(qs[-1] in (64, 128) for qs, _, _ in cases)
-    assert calls["wgmma"] == (wide if dtype == "bfloat16" else 0)
-    assert calls["tiled"] == (wide if dtype == "float32" else 0)
-    assert calls["simt"] == 2 * len(cases) - wide
+    # bf16 took the tensor cores at every width; f32 the tiled form at 64
+    # and 128, the generic SIMT form elsewhere
+    tiled = 2 * sum(qs[-1] in (64, 128) for qs, _, _ in cases)
+    if dtype == "bfloat16":
+        assert calls == {"wgmma": 2 * len(cases), "tiled": 0, "simt": 0}
+    else:
+        assert calls == {"wgmma": 0, "tiled": tiled,
+                         "simt": 2 * len(cases) - tiled}
 
 
 @pytest.mark.cuda

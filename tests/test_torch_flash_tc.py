@@ -1,7 +1,7 @@
 """Flash attention's tensor-core and tiled forms, on the CPU: the bf16 and
 f32 shapes the card checks against the JAX package, the wrapper's choice
-of form, its per-form launch counts, and its query tiles against the CUDA
-source.
+of form, its per-form launch counts, and its query tiles and padded head
+widths against the CUDA source.
 
 The kernel itself (``csrc/flash_attention.cu``) runs only on the card,
 where ``test_torch_cuda.py`` and ``chip_smoke.py`` hold it against the
@@ -17,7 +17,9 @@ over |v|, taken twice), and both round the output to bf16 (2^-8
 relative each, 1e-2 with room).  In f32 the reference's own
 ``rtol=2e-3, atol=2e-4``, as the card holds the tiled form.
 """
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,8 +33,10 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 
 #: (q shape, k/v shape, causal): the bf16 cases of chip_smoke.py's phase
-#: 2 — D = 64 and 128 (the wgmma form) ragged under both masks, Sq below
-#: and above Skv, and D = 96 (the SIMT form)
+#: 2, all on the wgmma form — D = 64, 128, 192 and 256 ragged under both
+#: masks, Sq below and above Skv, and widths padded to the next compiled
+#: one: 96, 80 (rows on the 16-byte grid) and 100 (off it) to 128, 32 and
+#: 33 (odd) to 64
 CARD_CASES = [((2, 130, 4, 64), (2, 130, 4, 64), True),
               ((2, 130, 4, 64), (2, 130, 4, 64), False),
               ((1, 257, 2, 128), (1, 257, 2, 128), True),
@@ -40,7 +44,22 @@ CARD_CASES = [((2, 130, 4, 64), (2, 130, 4, 64), True),
               ((2, 64, 4, 64), (2, 130, 4, 64), True),
               ((1, 300, 2, 128), (1, 200, 2, 128), True),
               ((1, 130, 2, 128), (1, 257, 2, 128), False),
-              ((1, 100, 2, 96), (1, 100, 2, 96), True)]
+              ((1, 257, 2, 192), (1, 257, 2, 192), True),
+              ((1, 257, 2, 192), (1, 257, 2, 192), False),
+              ((1, 130, 2, 192), (1, 257, 2, 192), True),
+              ((1, 300, 2, 192), (1, 200, 2, 192), True),
+              ((1, 130, 2, 192), (1, 257, 2, 192), False),
+              ((1, 257, 2, 256), (1, 257, 2, 256), True),
+              ((1, 257, 2, 256), (1, 257, 2, 256), False),
+              ((1, 130, 2, 256), (1, 257, 2, 256), True),
+              ((1, 300, 2, 256), (1, 200, 2, 256), True),
+              ((1, 130, 2, 256), (1, 257, 2, 256), False),
+              ((1, 100, 2, 96), (1, 100, 2, 96), True),
+              ((2, 130, 4, 32), (2, 130, 4, 32), True),
+              ((1, 257, 2, 80), (1, 257, 2, 80), True),
+              ((1, 257, 2, 100), (1, 257, 2, 100), True),
+              ((1, 130, 2, 100), (1, 200, 2, 100), False),
+              ((1, 100, 2, 33), (1, 100, 2, 33), True)]
 P_ROUNDING = 2.0 ** -7
 #: (q shape, k/v shape, causal): the f32 cases of chip_smoke.py's phase 2
 #: for the tiled form (D = 64 and 128, 128 queries a block) — ragged
@@ -84,16 +103,42 @@ def test_plain_version_matches_pallas_at_the_f32_card_shapes(q_shape,
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 96, "simt"), (torch.bfloat16, 32, "simt"),
-    (torch.bfloat16, 256, "simt"), (torch.float32, 64, "tiled"),
+    (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 64, "tiled"),
     (torch.float32, 128, "tiled"), (torch.float32, 96, "simt"),
-    (torch.float32, 192, "simt"), (torch.bfloat16, 192, "simt")])
+    (torch.float32, 192, "simt"), (torch.bfloat16, 192, "wgmma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 100, "wgmma"),
+    (torch.float32, 80, "simt"), (torch.float32, 100, "simt")])
 def test_form_follows_dtype_and_head_width(dtype, d, want):
     assert tfa.form(torch.zeros(1, 8, 2, d, dtype=dtype)) == want
     # the (S, D) layout, and a base off the 16-byte grid: the kernel picks
     # its load widths itself, so neither changes the form
     assert tfa.form(torch.zeros(8, d, dtype=dtype)) == want
     assert tfa.form(torch.zeros(8 * d + 1, dtype=dtype)[1:].view(8, d)) == want
+
+
+@pytest.mark.parametrize("d,want", [
+    (1, 64), (32, 64), (33, 64), (64, 64), (65, 128), (80, 128),
+    (96, 128), (100, 128), (128, 128), (129, 192), (192, 192),
+    (193, 256), (256, 256)])
+def test_padded_width_is_the_next_compiled_width(d, want):
+    assert tfa.padded_width(d) == want
+
+
+@pytest.mark.parametrize("d", [0, 257])
+def test_padded_width_refuses_widths_the_kernel_does_not_take(d):
+    with pytest.raises(ValueError, match="head widths"):
+        tfa.padded_width(d)
+
+
+def test_card_cases_are_chip_smokes():
+    # the shapes held here against the Pallas kernel are the ones the card
+    # holds the kernel to
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert list(smoke.FLASH_BF16_SMALL) == CARD_CASES
 
 
 def test_cpu_calls_count_no_launch_of_either_form():
@@ -119,9 +164,21 @@ def test_query_tiles_match_the_source():
         assert re.findall(r"constexpr int BQ = (\d+);", part) == [
             str(tfa.BQ[form])], form
     assert set(tfa.BQ) == set(tfa.FORMS)
-    assert re.search(r"D == 64 \|\| D == 128", tc) and tfa.WGMMA_D == (64, 128)
+    # the widths the wgmma form is compiled for, as its static_assert
+    # names them, and the tiled form's
+    assert [int(w) for w in re.findall(
+        r"DP == (\d+)", tc.split("static_assert(", 1)[1].split(";", 1)[0])
+    ] == list(tfa.WGMMA_D) == [64, 128, 192, 256]
     assert (re.search(r"D == 64 \|\| D == 128", tiled)
             and tfa.TILED_D == (64, 128))
+    # the C dispatch sends bf16 at every width to the next compiled one
+    # up, as padded_width does
+    bf16 = src.split("int dispatch_bf16(", 1)[1].split("\n}\n", 1)[0]
+    steps = re.findall(r"if \(D <= (\d+)\) return tc::launch<(\d+)>", bf16)
+    assert steps == [(str(w), str(w)) for w in tfa.WGMMA_D[:-1]]
+    assert re.findall(r"\n  return tc::launch<(\d+)>", bf16) == [
+        str(tfa.WGMMA_D[-1])]
+    assert "__nv_bfloat16" not in simt  # the SIMT form is f32 alone
     # the C dispatch sends f32 at exactly those widths to the tiled form
     f32 = src.split("int dispatch_f32(", 1)[1].split("\n}\n", 1)[0]
     assert re.findall(r"if \(D == (\d+)\) return tiled::launch<(\d+)>",
