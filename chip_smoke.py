@@ -27,14 +27,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    device kernels a call (one ``torch.profiler`` run over the same
    iterations: a time well under ``ms`` is the host's) and its bound;
    each matmul, row moments, rmsnorm, flash attention and MoE dispatch
-   case logs the form it took (matmul: narrow up to 32 columns, wide
-   above; row moments: one launch or split; rmsnorm: warp on 16-byte
-   units, scalar off the 16-byte grid or for longer rows; flash
-   attention: wgmma for bf16 at any head width, with the width it is
-   padded to (64, 128, 192 or 256), tiled for f32 at 64 and 128, simt
-   for f32 at any other; MoE dispatch: wgmma for bf16 x, simt for f32
-   x), each bitonic sort case its passes, and each row
-   moments and rmsnorm case is held bit-equal across two calls; each
+   case logs the form it took (matmul: narrow up to 32 columns, split
+   for up to 128 rows where K cuts into slices, wide otherwise; row
+   moments: one launch or split; rmsnorm: warp on 16-byte units, scalar
+   off the 16-byte grid or for longer rows; flash attention: wgmma for
+   bf16 and tiled for f32, each at any head width, with the width it is
+   padded to (64, 128, 192 or 256); MoE dispatch: wgmma for bf16 x, simt
+   for f32 x), each bitonic sort case its passes, and each matmul, row
+   moments and rmsnorm case is held bit-equal across two calls (a split
+   matmul's lanes under ``vmap`` each to its own launch, too); each
    rmsnorm case also times ``copy_`` of its input (events and device ms),
    the card's read-and-write ceiling for the same bytes;
 3. main path: ``generate_proxy`` on K-means at ``SCALE`` (1.0: 400,000
@@ -342,6 +343,29 @@ FLASH_BF16_SMALL = tuple(
                                ((1, 130, 2), (1, 257, 2), True),
                                ((1, 300, 2), (1, 200, 2), True),
                                ((1, 130, 2), (1, 257, 2), False))]
+    + [((1, 100, 2, 96), (1, 100, 2, 96), True),
+       ((2, 130, 4, 32), (2, 130, 4, 32), True),
+       ((1, 257, 2, 80), (1, 257, 2, 80), True),
+       ((1, 257, 2, 100), (1, 257, 2, 100), True),
+       ((1, 130, 2, 100), (1, 200, 2, 100), False),
+       ((1, 100, 2, 33), (1, 100, 2, 33), True)])
+
+#: phase 2's small f32 flash attention cases (q shape, k/v shape,
+#: causal), all on the tiled form: D = 64, 128, 192 and 256 ragged under
+#: both masks with Sq below and above Skv, and widths padded to the next
+#: compiled one (96, 80 and 100 to 128, 32 and 33 to 64)
+FLASH_F32_SMALL = tuple(
+    [((2, 130, 4, 64), (2, 130, 4, 64), True),
+     ((2, 130, 4, 64), (2, 130, 4, 64), False),
+     ((1, 257, 2, 128), (1, 257, 2, 128), True),
+     ((1, 257, 2, 128), (1, 257, 2, 128), False),
+     ((2, 64, 4, 64), (2, 130, 4, 64), True),
+     ((1, 300, 2, 128), (1, 200, 2, 128), True)]
+    + [(qs + (d,), kvs + (d,), causal) for d in (192, 256)
+       for qs, kvs, causal in (((1, 257, 2), (1, 257, 2), True),
+                               ((1, 257, 2), (1, 257, 2), False),
+                               ((1, 130, 2), (1, 257, 2), True),
+                               ((1, 300, 2), (1, 200, 2), True))]
     + [((1, 100, 2, 96), (1, 100, 2, 96), True),
        ((2, 130, 4, 32), (2, 130, 4, 32), True),
        ((1, 257, 2, 80), (1, 257, 2, 80), True),
@@ -677,6 +701,14 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         tol = TOL[(kind, row["dtype"])]
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(), **tol)
+        # each form's summation order is the shape's: the same bits again
+        if not torch.equal(call(), got):
+            raise fail(f"matmul {row['shape']} {row['dtype']}: two calls on "
+                       f"the same input differ ({row['form']} form)")
+        if row["form"] == "split":
+            row["slices"] = matmul.split_slices(x.shape[0], y.shape[1],
+                                                x.shape[1])
+            check_split_lanes(torch, x, y, got)
         row["ms"] = time_ms(torch, call, iters)
         row["plain_ms"] = time_ms(torch, lambda: ref.matmul(x, y), iters)
         row["library_ms"] = time_ms(torch, lambda: torch.matmul(x, y), iters)
@@ -723,8 +755,7 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
         q, k, v, causal = args
         fa = flash_attention.flash_attention
         row["form"] = flash_attention.form(q)
-        if row["form"] == "wgmma":
-            row["padded_width"] = flash_attention.padded_width(q.shape[-1])
+        row["padded_width"] = flash_attention.padded_width(q.shape[-1])
         call = lambda: fa(q, k, v, causal=causal)  # noqa: E731
         got = launch_form(row, fa, call)
         want = ref.flash_attention(q, k, v, causal)
@@ -814,6 +845,26 @@ def check_kernel(torch, kind: str, args, iters: int = 20) -> dict:
     return row
 
 
+def check_split_lanes(torch, x, y, one) -> None:
+    """Fails unless the split form's lanes under ``vmap`` (2 lanes of x
+    alone, which take the lane axis rather than fold into M, and 2 of x
+    and y) each equal their own launch bit for bit; ``one`` is x @ y."""
+    from repro_torch.core.evaluator import no_vmap_fallback
+    from repro_torch.kernels import ops
+
+    x2, y2 = torch.stack([x, x.flip(0)]), torch.stack([y, y.flip(1)])
+    with no_vmap_fallback():
+        for dims, ys in (((0, None), y), ((0, 0), y2)):
+            got = torch.func.vmap(ops.matmul, in_dims=dims)(x2, ys)
+            for j in range(2):
+                own = one if j == 0 else ops.matmul(
+                    x2[j], ys if dims[1] is None else ys[j])
+                if not torch.equal(got[j], own):
+                    raise fail(f"matmul split lanes {list(x.shape)} @ "
+                               f"{list(y.shape)} {dims}: lane {j} differs "
+                               f"from its own launch")
+
+
 def fmt_ms(v) -> str:
     return "n/a" if v is None else f"{v:.4f}"
 
@@ -827,6 +878,8 @@ def fmt_row(r: dict) -> str:
         form = f" [{r['mask_dtype']} mask, {r['form']}]"
     elif "padded_width" in r:
         form = f" [{r['form']}, D padded to {r['padded_width']}]"
+    elif "slices" in r:
+        form = f" [{r['form']}, K in {r['slices']} slices]"
     else:
         form = f" [{r['form']}]" if "form" in r else ""
     if "passes" in r:
@@ -848,9 +901,9 @@ def entry_point_cases(torch, dev, full: bool):
     (``src/repro/configs/qwen3_4b.py``) at the train_4k length,
     tinyllama-1.1b's head_dim 64 (f32 and bf16 at both widths), the
     prefill attention of deepseek-v2-lite-16b's MLA (16 heads of 192, its
-    nope 128 + rope 64 dims; bf16 on the tensor cores, and f32, the
-    generic SIMT form), gemma2-9b's 16 heads of 256
-    (``configs/gemma2_9b.py``; bf16), and its MoE group
+    nope 128 + rope 64 dims; bf16 on the tensor cores and f32 on the
+    tiled form), gemma2-9b's 16 heads of 256 (``configs/gemma2_9b.py``;
+    bf16 and f32), and deepseek-v2-lite-16b's MoE group
     (``configs/deepseek_v2_lite_16b.py``: group 4096, 64 experts, d_model
     2048, 6 experts a token at capacity factor 1.25, so capacity
     int(4096·6·1.25/64) = 480 by ``models/layers.py:561-563``; the mask
@@ -889,24 +942,18 @@ def entry_point_cases(torch, dev, full: bool):
                                   randn(d, dtype=dtype)), 20, False
             yield "rmsnorm", (randn(33 * 512 + 1, dtype=dtype)[1:].view(
                 33, 512), randn(512, dtype=dtype)), 20, False
-        for shape, causal in (((2, 130, 4, 64), True), ((2, 130, 4, 64), False),
-                              ((1, 257, 2, 128), True),
-                              ((1, 257, 2, 128), False),
-                              ((1, 100, 2, 96), True)):
-            yield "flash_attention", (randn(*shape), randn(*shape),
-                                      randn(*shape), causal), 20, False
-        kv = (2, 130, 4, 64)  # Sq != Skv under the causal mask
-        yield "flash_attention", (randn(2, 64, 4, 64), randn(*kv),
-                                  randn(*kv), True), 20, False
-        # f32's tiled form: Sq above Skv past one 128-query tile, and bases
-        # off the 16-byte grid (its value-by-value loads) at D = 128
-        kv = (1, 200, 2, 128)
-        yield "flash_attention", (randn(1, 300, 2, 128), randn(*kv),
-                                  randn(*kv), True), 20, False
-        n = 1 * 257 * 2 * 128
-        yield "flash_attention", tuple(
-            randn(n + 1)[1:].view(1, 257, 2, 128)
-            for _ in range(3)) + (True,), 20, False
+        # f32, all on the tiled form: D = 64 to 256 at the compiled widths
+        # and widths padded to the next one up, as in bf16 below; then
+        # bases off the 16-byte grid (its value-by-value loads) at D = 128
+        # and 192 and at 80 (D at run time)
+        for qs, kvs, causal in FLASH_F32_SMALL:
+            yield "flash_attention", (randn(*qs), randn(*kvs), randn(*kvs),
+                                      causal), 20, False
+        for d in (128, 192, 80):
+            n = 1 * 257 * 2 * d
+            yield "flash_attention", tuple(
+                randn(n + 1)[1:].view(1, 257, 2, d)
+                for _ in range(3)) + (True,), 20, False
         # bf16, all on the wgmma form: D = 64 to 256 at the compiled
         # widths (ragged, both masks, Sq below and above Skv), and widths
         # padded to the next one up: 96 and 32, 80 (160-byte rows on the
@@ -969,7 +1016,8 @@ def entry_point_cases(torch, dev, full: bool):
             ((1, 4096, 32, 64), bf16, 10, False),
             ((1, 4096, 16, 192), bf16, 10, False),
             ((1, 4096, 16, 256), bf16, 10, False),
-            ((1, 4096, 16, 192), f32, 5, False)):
+            ((1, 4096, 16, 192), f32, 5, False),
+            ((1, 4096, 16, 256), f32, 5, False)):
         yield "flash_attention", tuple(randn(*shape, dtype=dtype)
                                        for _ in range(3)) + (True,), iters, \
             headline
@@ -1065,9 +1113,18 @@ def phase_kernels(torch, dev) -> list:
                         (4099, 67, 8)):
             add("matmul", (randn(m, k, dtype=dtype),
                            randn(k, n, dtype=dtype)))
+        # the split form: the AI proxies' fully_connected (32, 2048) @
+        # (2048, 2048), M = 1, 17, 64 and 128 (two and four row tiles) at
+        # long K, the fewest slices (K = 512), N and K off the 16-byte unit
+        # (the value by value loads), a ragged N past the last column tile
+        for m, k, n in ((32, 2048, 2048), (1, 2048, 2048), (17, 2048, 2048),
+                        (64, 2048, 2048), (128, 2048, 2048), (32, 512, 1000),
+                        (17, 2050, 2047), (33, 1027, 300)):
+            add("matmul", (randn(m, k, dtype=dtype),
+                           randn(k, n, dtype=dtype)), 50 if k == 2048 else 20)
         # base pointers off the 16-byte grid: the wide form's scalar loads,
-        # at a wide and a narrow N
-        for m, k, n in ((300, 256, 160), (4096, 256, 8)):
+        # at a wide and a narrow N, and the split form's
+        for m, k, n in ((300, 256, 160), (4096, 256, 8), (32, 2048, 2048)):
             add("matmul", (off_grid(m, k, dtype=dtype),
                            off_grid(k, n, dtype=dtype)))
     # the main path's shape; either side of the one-launch bounds (the

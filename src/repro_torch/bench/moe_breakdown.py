@@ -18,15 +18,12 @@ Needs ``nvcc`` and a CUDA card; the copies land in ``kernels/_build/``.
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
-from pathlib import Path
 from typing import Dict
 
 import torch
 
-from repro_torch.core.store import atomic_write_text
+from repro_torch.bench import _variants
 from repro_torch.kernels import _build, moe_dispatch
 
 #: the markers in moe_dispatch.cu: the main loop's refill of the ring
@@ -54,54 +51,14 @@ def variant_sources(src: str) -> Dict[str, str]:
             "no_wgmma": "".join(no_wgmma)}
 
 
-def build(out_dir: Path) -> Dict[str, ctypes.CDLL]:
-    """Compile every variant (one nvcc each, all started together)."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "moe_dispatch.cu").read_text()
-    procs = {}
-    for name, text in variant_sources(src).items():
-        cu = out_dir / f"{name}.cu"
-        atomic_write_text(str(cu), text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-             str(_build.CSRC), str(cu), "-o", str(out_dir / f"{name}.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{report}")
-        regs = [line.split(":")[-1].strip() for line in report.splitlines()
-                if "registers" in line]
-        print(json.dumps({"variant": name, "ptxas": regs}), flush=True)
-        fn = ctypes.CDLL(str(out_dir / f"{name}.so")).repro_moe_dispatch
-        fn.argtypes = _build.SIGNATURES["repro_moe_dispatch"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
-
-
-def time_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("moe_breakdown: needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True, timeout=60)
-    print(card.stdout.strip().splitlines()[0], flush=True)
-    fns = build(_build.BUILD_ROOT / f"breakdown-{_build.source_digest()}")
+    print(_variants.card(), flush=True)
+    fns = _variants.build_copies(
+        _build.BUILD_ROOT / f"breakdown-{_build.source_digest()}",
+        variant_sources((_build.CSRC / "moe_dispatch.cu").read_text()),
+        "repro_moe_dispatch", "dispatch")
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -122,7 +79,7 @@ def main() -> int:
                              "the custom op")
         for rnd in range(ROUNDS):
             for name, fn in fns.items():
-                ms = time_ms(lambda: fn(*args), ITERS)
+                ms = _variants.time_ms(lambda: fn(*args), ITERS)
                 print(json.dumps({"variant": name, "round": rnd,
                                   "mask": str(mask.dtype).replace("torch.", ""),
                                   "shape": list(SHAPE), "ms": ms}),

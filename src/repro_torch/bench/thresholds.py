@@ -21,6 +21,12 @@ measurement:
   product, and the kernels ``torch.matmul`` runs (its summation order).
 - ``matmul``: the narrow form against the wide form at N up to 32 (ms a
   call, the same way), for ``kernels.matmul.NARROW_N``.
+- ``matmul_split``: the split form against the wide form and
+  ``torch.matmul`` at few rows (M from 1 to 128), K from 256 to 2048 and
+  N from 2048 to past the split form's reach (ms a call, the same way,
+  and device ms), with its slices and each one's difference from a
+  float64 product, for ``kernels.matmul.SPLIT_MAX_M`` and
+  ``SPLIT_MIN_K``.
 
 Every forced row-moments call is checked against the plain version
 first; each matmul form reports its largest difference from the plain
@@ -49,6 +55,9 @@ ROW_MOMENTS_BYTES = (MIB // 4, MIB, 2 * MIB, 4 * MIB, 8 * MIB, 16 * MIB,
 MATMUL_SHAPES = ((65536, 2048), (12288, 2048), (4096, 64))
 MATMUL_NS = (2, 8, 16, 24, 32)
 SPLITS = (2, 3, 4, 8, 16, 32)
+SPLIT_MS = (1, 32, 64, 96, 128)
+SPLIT_KS = (256, 512, 1024, 2048)
+SPLIT_NS = (2048, 8448, 16384)
 ORDER_SHAPES = ((12288, 2048, 128), (32768, 2048, 128), (65536, 2048, 2),
                 (65536, 2048, 8), (65536, 2048, 32), (65536, 2048, 33),
                 (12288, 2048, 32))
@@ -192,6 +201,36 @@ def matmul(dev: torch.device) -> None:
                      chosen=mm.form(x, y), **row)
 
 
+def matmul_split(dev: torch.device) -> None:
+    """The split form against the wide one, both forced, in f32 (the AI
+    proxies' type) and at the AI proxies' shape in bf16, beside
+    ``torch.matmul``; each form's largest difference from the plain
+    version and from a float64 product (the split form sums K's slices
+    in rank order, the wide one in k order, cuBLAS in its own)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(m, k, n, torch.float32) for m in SPLIT_MS for k in SPLIT_KS
+              for n in SPLIT_NS] + [(32, 2048, 2048, torch.bfloat16)]
+    for m, k, n, dtype in shapes:
+        x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+        y = torch.randn(k, n, generator=g, device=dev).to(dtype)
+        want = ref.matmul(x, y).float()
+        exact = torch.matmul(x.double(), y.double())
+        row = {}
+        for form in ("wide", "split"):
+            got = mm.launch_matmul(x, y, form).float()
+            row[form + "_err"] = (got - want).abs().max().item()
+            row[form + "_err_f64"] = (got.double() - exact).abs().max().item()
+            call = lambda: mm.launch_matmul(x, y, form)  # noqa: E731
+            row[form + "_ms"] = time_ms(call)
+            row[form + "_device_ms"] = device_ms(call)
+        row["torch_err_f64"] = (want.double() - exact).abs().max().item()
+        row["torch_matmul_ms"] = time_ms(lambda: torch.matmul(x, y))
+        row["torch_matmul_device_ms"] = device_ms(lambda: torch.matmul(x, y))
+        emit("matmul_split", shape=[m, k, n],
+             dtype=str(dtype).replace("torch.", ""),
+             slices=mm.split_slices(m, n, k), chosen=mm.form(x, y), **row)
+
+
 def library_kernels(fn) -> list:
     """Names of the device kernels one call of ``fn`` runs."""
     from torch.autograd import DeviceType
@@ -262,6 +301,7 @@ def main() -> int:
     matmul_orders(dev)
     row_moments(dev)
     matmul(dev)
+    matmul_split(dev)
     return 0
 
 

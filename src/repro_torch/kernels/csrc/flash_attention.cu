@@ -78,60 +78,69 @@
 //     S, DP/2 O and BK/4 P registers (32 + 128 + 16 at DP = 256); one
 //     block of 256 threads an SM leaves 255 a thread (ptxas reports
 //     spills).
-//  8. The query tile: 128 rows here and in the tiled form, 64 in the
-//     SIMT form; the wrapper counts the grid with the form's own tile.
+//  8. The query tile: 128 rows, as in the tiled form.
 // Left out on purpose: TMA, warp specialisation and setmaxnreg, clusters,
 // a persistent scheduler, and overlapping one tile's softmax with the
 // next tile's products inside a warpgroup.
 //
-// f32 at D = 64 and 128: register-tiled FMA (the reference product is
-// full f32, so no TF32).  A block of 256 threads takes 128 queries; tiles
-// of BK keys (128 at D = 64, 64 at D = 128) stream through shared memory.
-// Thread (ty, tx) = (tid / 16, tid % 16) owns 8 queries, 64·(i/4) + 4·ty +
-// i%4, for the whole kernel: their 8 x BK/16 scores against keys 16·j +
-// tx of a tile, their running max and sums, and their 8 x D/16 block of
-// the output at columns 64·g + 4·tx + 0..3.  What the design does about
-// each hazard:
+// f32 at every D from 1 to 256: register-tiled FMA (the reference product
+// is full f32, so no TF32), compiled for the padded widths DP = 64, 128,
+// 192 and 256, as the wgmma form; a D between runs at the next one up, D
+// a run-time value, and a full-width head at DP = 64, 128 or 192 runs a
+// copy with D fixed at compile time (at 192 it measured 6 % faster, at
+// 256 no faster than the run-time copy: PERF.md §6).  A block of 256 threads
+// takes 128 queries; tiles of BK keys (128 at DP = 64, 64 at 128, 48 at
+// 192, 32 at 256) stream through shared memory.  Thread (ty, tx) =
+// (tid / 16, tid % 16) owns 8 queries, 64·(i/4) + 4·ty + i%4, for the
+// whole kernel: their 8 x BK/16 scores against keys 16·j + tx of a tile,
+// their running max and sums, and their 8 x DP/16 block of the output at
+// columns 64·g + 4·tx + 0..3.  What the design does about each hazard:
 //  1. Score reads: q and k are staged as they lie (rows along d), each
 //     row padded by 4 floats, so a thread reads its 8 queries and BK/16
 //     keys as float4 along d: 8 + BK/16 vector loads for 32·BK/16 FMAs.
-//     A warp's 16 k reads, rows D + 4 floats apart, are two conflict-free
+//     A warp's 16 k reads, rows DP + 4 floats apart, are two conflict-free
 //     wavefronts; its q reads are two addresses in different banks.  (A
 //     d-major copy would need a transpose through registers for the same
 //     vector width.)
 //  2. PV reads: p is stored key by key (ps[key][query], rows padded by 4
 //     floats), so a thread's 8 queries of one key are two float4, and v
-//     rows are read as float4 at 4·tx: 2 + D/64 vector loads for 8·D/16
+//     rows are read as float4 at 4·tx: 2 + DP/64 vector loads for 8·DP/16
 //     FMAs a key.
 //  3. Loads under the FMAs: q once, then k and v by 16-byte cp.async, one
 //     buffer each, alternating: v of tile kt is copied while the scores
 //     of tile kt are computed, k of tile kt+1 while the PV product of
 //     tile kt runs; two barriers a tile (the scores' k; the product's p
-//     and v).  A base off the 16-byte grid loads value by value.
-//  4. Shared memory: 169 KB at D = 64 (q and k 35 KB each, v 32, p 68),
-//     167 KB at D = 128 (q 68, k 34, v 32, p 34), one block an SM, so
-//     every launch raises the function's dynamic limit.
-//  5. Registers: 8·BK/16 scores, 8·D/16 sums and 16 running statistics a
-//     thread, 64 + 32 at D = 64 and 32 + 64 at D = 128; one block of 256
-//     threads an SM leaves 255 a thread (ptxas reports spills).
-//  6. The softmax: in base 2 (scores times scale·log2 e, ex2.approx, as
+//     and v).  Rows are H·D·4 bytes apart and heads D·4, so an operand
+//     takes 16-byte copies when its base is on the 16-byte grid and D %
+//     4 == 0, else value-by-value loads and a 16-byte store; the output
+//     is stored as float4 under the same rule, else value by value.
+//  4. A run-time D: columns past D are zero-filled in q, k and v (a
+//     cp.async of source size 0), so they add exact zeros to q·k; the
+//     score loop stops at D rounded up to 4 (at DP = 256 it runs to 256,
+//     which keeps the run-time copy within the registers); output columns
+//     past D are computed but never stored.  D between 128 and 192, or
+//     past 192, needs every 64-wide column group, so no group is
+//     skipped.
+//  5. Shared memory: q 128 x (DP + 4), k BK x (DP + 4), v BK x DP and p BK
+//     x 132 floats: 169 KB at DP = 64, 167 KB at 128, 196 KB at 192 and
+//     211 KB at 256 (48 keys would take 252 KB there), under the 227 KB a
+//     block may take (a static_assert); one block an SM, so every launch
+//     raises the function's dynamic limit.
+//  6. Registers: 8·BK/16 scores, 8·DP/16 sums and 16 running statistics a
+//     thread, 64 + 32 at DP = 64, 32 + 64 at 128, 24 + 96 at 192 and 16 +
+//     128 at 256; one block of 256 threads an SM leaves 255 a thread
+//     (ptxas reports spills).
+//  7. The softmax: in base 2 (scores times scale·log2 e, ex2.approx, as
 //     the wgmma form), the row max through a 16-lane shuffle each tile;
 //     each thread keeps its own share of the row sum, added over the 16
 //     lanes once at the end.  Only tiles on the causal diagonal and past
 //     Skv are masked.
-//  7. The query tile: 128 rows, as in the wgmma form; the wrapper counts
+//  8. The query tile: 128 rows, as in the wgmma form; the wrapper counts
 //     the grid with the form's own tile.
 // Each score and each output is one fmaf chain in d and key order.  The
-// key tile per width, and the loops' unrolling, are the fastest of those
-// timed on the card that ptxas compiles without spilling.
-//
-// f32 at any other D up to 256: SIMT FMA.  One 256-thread block per
-// (b·h, 64-query tile); the q tile is staged once in shared memory and
-// 64-key tiles of k and v stream through shared memory.  Each thread owns
-// a 4x4 block of the 64x64 score tile and a 4x(D/16) block of the
-// accumulator; the row max and sum go through a 16-lane shuffle; p goes
-// through shared memory for the PV product.  The head width is a run-time
-// value.
+// key tile per width, the loops' unrolling and the fixed-D copies are the
+// fastest of those timed on the card (repro_torch.bench.flash_tiles at
+// DP = 192 and 256) that ptxas compiles without spilling.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -139,13 +148,10 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
 constexpr int THREADS = 256;
 constexpr int TX = 16;  // threads along keys (scores) and d (output)
-constexpr int RQ = BQ / (THREADS / TX);  // 4 query rows a thread
-constexpr int RK = BK / TX;              // 4 keys a thread
 constexpr int MAX_D = 256;
+constexpr int SMEM_LIMIT = 232448;  // the most a block may take, 227 KB
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -169,226 +175,91 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// floats of shared memory for head width d
-__host__ __device__ constexpr int64_t smem_floats(int d) {
-  return 2 * static_cast<int64_t>(BQ) * (d + 1) + static_cast<int64_t>(BK) * d +
-         static_cast<int64_t>(BQ) * (BK + 1);
-}
-
-// any head width up to MAX_D, given at run time
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int64_t Sq,
-             int64_t Skv, int64_t H, int D, float scale, bool causal) {
-  constexpr int DJ = MAX_D / TX;  // output columns a thread, at most
-  const int DP = D + 1;  // padded row: conflict-free column reads
-  extern __shared__ float smem[];
-  float* qs = smem;               // [BQ][DP]
-  float* ks = qs + BQ * DP;       // [BK][DP]
-  float* vs = ks + BK * DP;       // [BK][D]
-  float* ps = vs + BK * D;        // [BQ][BK + 1]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int64_t bh = blockIdx.x;
-  const int64_t b = bh / H;
-  const int64_t h = bh % H;
-  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * BQ;
-  const int64_t row = H * D;  // stride between sequence positions
-  const float* qb = q + (b * Sq * H + h) * D;
-  const float* kb = k + (b * Skv * H + h) * D;
-  const float* vb = v + (b * Skv * H + h) * D;
-  float* ob = out + (b * Sq * H + h) * D;
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D;
-    const int d = e % D;
-    qs[r * DP + d] = q0 + r < Sq ? qb[(q0 + r) * row + d] : 0.0f;
-  }
-
-  float m[RQ], l[RQ], acc[RQ][DJ];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
-  }
-
-  // under the causal mask, key tiles starting past the tile's last query
-  // are wholly masked
-  const int64_t kv_end = causal ? (Skv < q0 + BQ ? Skv : q0 + BQ) : Skv;
-  for (int64_t k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the last tile's ks, vs, ps reads are done
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D;
-      const int d = e % D;
-      const bool in = k0 + r < Skv;  // zeros past Skv: 0·p stays 0
-      ks[r * DP + d] = in ? kb[(k0 + r) * row + d] : 0.0f;
-      vs[r * D + d] = in ? vb[(k0 + r) * row + d] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[RQ][RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[RQ], c[RK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = qs[(ty + i * (THREADS / TX)) * DP + d];
-#pragma unroll
-      for (int j = 0; j < RK; ++j) c[j] = ks[(tx + j * TX) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < RK; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qr = ty + i * (THREADS / TX);
-      const int64_t qidx = q0 + qr;
-      bool ok[RK];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int64_t kidx = k0 + tx + j * TX;
-        ok[j] = kidx < Skv && (!causal || kidx <= qidx);
-        s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      float psum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-        psum += p;
-        ps[qr * (BK + 1) + tx + j * TX] = p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + half_warp_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = ps[(ty + i * (THREADS / TX)) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + j * TX;
-        if (d >= D) break;
-        const float vv = vs[kk * D + d];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int64_t qidx = q0 + ty + i * (THREADS / TX);
-    if (qidx >= Sq) continue;
-    const float inv_l = 1.0f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + j * TX;
-      if (d >= D) break;
-      ob[qidx * row + d] = acc[i][j] * inv_l;
-    }
-  }
-}
-
-int launch(const void* q, const void* k, const void* v, void* out,
-           int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D, float scale,
-           bool causal, cudaStream_t s) {
-  const size_t bytes = sizeof(float) * smem_floats(D);
-  // once: allow the largest shared-memory footprint
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(float) * smem_floats(MAX_D)));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>(B * H),
-                  static_cast<unsigned>((Sq + BQ - 1) / BQ));
-  flash_kernel<<<grid, THREADS, bytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, D,
-      scale, causal);
-  return launch_status();
-}
-
 namespace tiled {
 
 constexpr int BQ = 128;  // queries a block
 constexpr int PP = BQ + 4;  // a row of ps: one key's p for every query
 
-template <int D>
+template <int DP>
 struct Shape {
-  static_assert(D == 64 || D == 128, "the tiled form takes D = 64 or 128");
-  static constexpr int BK = D == 64 ? 128 : 64;  // keys a tile
+  static_assert(DP == 64 || DP == 128 || DP == 192 || DP == 256,
+                "the tiled form takes DP = 64, 128, 192 or 256");
+  // keys a tile; the unrolling of the score loop's 4-wide d steps, of
+  // the PV loop's keys and of a tile load's chunks; whether a run-time D
+  // scores all DP columns (repro_torch.bench.flash_tiles times others)
+  static constexpr int BK = DP == 64 ? 128 : DP == 128 ? 64 : DP == 192 ? 48 : 32;
+  static constexpr int D_UNROLL = DP == 256 ? 2 : DP == 64 ? 2 : 4;
+  static constexpr int PV_UNROLL = DP == 256 ? 4 : 16;
+  static constexpr int LOAD_UNROLL = DP == 256 ? 1 : 64;
+  static constexpr int SCORE_DP = DP == 256 ? 1 : 0;
   static constexpr int KJ = BK / TX;  // keys of a tile a thread scores
-  static constexpr int D_UNROLL = D == 64 ? 2 : 4;  // 4-wide d steps
-  static constexpr int RP = D + 4;   // a row of qs or ks, padded
-  static constexpr int DJ = D / TX;  // output columns a thread
+  static constexpr int RP = DP + 4;   // a row of qs or ks, padded
+  static constexpr int DJ = DP / TX;  // output columns a thread
   static constexpr int Q_FLOATS = BQ * RP;
   static constexpr int K_FLOATS = BK * RP;
-  static constexpr int V_FLOATS = BK * D;
+  static constexpr int V_FLOATS = BK * DP;
   static constexpr int P_FLOATS = BK * PP;
   static constexpr int SMEM_BYTES =
       4 * (Q_FLOATS + K_FLOATS + V_FLOATS + P_FLOATS);
+  static_assert(SMEM_BYTES <= SMEM_LIMIT, "past the shared memory a block "
+                                          "may take");
 };
 
 // ROWS rows of D floats (row r at src + (r0 + r)·stride) -> dst, rows
-// `pitch` floats apart, zero past row n: 16-byte cp.async when the base
-// is on the 16-byte grid (vec), else 4-byte loads and a 16-byte store.
-// Neighbouring threads take neighbouring 16-byte chunks of a row.
-template <int ROWS, int D>
+// `pitch` floats apart, DP columns, zero past row n and past column D:
+// 16-byte cp.async when every row starts on the 16-byte grid (vec), else
+// 4-byte loads and a 16-byte store.  Neighbouring threads take
+// neighbouring 16-byte chunks of a row.
+template <int ROWS, int DP, bool FIXED_D, int UNROLL>
 __device__ __forceinline__ void load_rows(float* dst, int pitch,
                                           const float* src, int64_t stride,
-                                          int64_t r0, int64_t n, bool vec,
-                                          int tid) {
-  constexpr int CPR = D / 4;  // 16-byte chunks a row
+                                          int64_t r0, int64_t n, int D,
+                                          bool vec, int tid) {
+  constexpr int CPR = DP / 4;  // 16-byte chunks a row
   static_assert(ROWS * CPR % THREADS == 0, "tile shape");
-#pragma unroll
+#pragma unroll UNROLL
   for (int j = 0; j < ROWS * CPR / THREADS; ++j) {
     const int i = tid + j * THREADS;
     const int r = i / CPR, c = (i % CPR) * 4;
-    const bool in = r0 + r < n;
-    const float* p = src + (in ? r0 + r : 0) * stride + c;
+    const bool in_row = r0 + r < n;
+    const bool in_col = FIXED_D || c < D;
+    const float* p = src + (in_row ? r0 + r : 0) * stride + (in_col ? c : 0);
     float* d = dst + r * pitch + c;
-    if (vec) {
-      wg::cp_async16(wg::smem_u32(d), p, in);
+    if (vec) {  // D % 4 == 0: a chunk lies wholly inside D or past it
+      wg::cp_async16(wg::smem_u32(d), p, in_row && in_col);
     } else {
-      *reinterpret_cast<float4*>(d) =
-          in ? make_float4(p[0], p[1], p[2], p[3])
-             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (in_row && in_col) {
+        w.x = p[0];
+        if (FIXED_D || c + 1 < D) w.y = p[1];
+        if (FIXED_D || c + 2 < D) w.z = p[2];
+        if (FIXED_D || c + 3 < D) w.w = p[3];
+      }
+      *reinterpret_cast<float4*>(d) = w;
     }
   }
 }
 
-template <int D>
+// FIXED_D: the head width is DP, known at compile time; else it is d,
+// from 1 to DP, given at run time
+template <int DP, bool FIXED_D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int64_t Sq,
-          int64_t Skv, int64_t H, float scale_log2, int causal, int q_vec,
-          int k_vec, int v_vec, int o_vec) {
-  using S = Shape<D>;
+          int64_t Skv, int64_t H, int d, float scale_log2, int causal,
+          int q_vec, int k_vec, int v_vec, int o_vec) {
+  const int D = FIXED_D ? DP : d;
+  using S = Shape<DP>;
   constexpr int BK = S::BK;
   constexpr int KJ = S::KJ;
   constexpr int D_UNROLL = S::D_UNROLL;
+  constexpr int PV_UNROLL = S::PV_UNROLL;
   constexpr int RP = S::RP;
   constexpr int DJ = S::DJ;
   extern __shared__ __align__(16) float smem[];
   float* const qs = smem;              // [BQ][RP]
   float* const ks = qs + S::Q_FLOATS;  // [BK][RP]
-  float* const vs = ks + S::K_FLOATS;  // [BK][D]
+  float* const vs = ks + S::K_FLOATS;  // [BK][DP]
   float* const ps = vs + S::V_FLOATS;  // [BK][PP]
 
   const int tid = threadIdx.x;
@@ -403,14 +274,17 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (b * Skv * H + h) * D;
   const float* vb = v + (b * Skv * H + h) * D;
   float* ob = out + (b * Sq * H + h) * D;
+  // d columns that can be nonzero: the score loop's end
+  const int DL = FIXED_D || S::SCORE_DP ? DP : (D + 3) & ~3;
 
   // under the causal mask, key tiles starting past the block's last query
   // are wholly masked
   const int64_t kv_end = causal ? (Skv < q0 + BQ ? Skv : q0 + BQ) : Skv;
   const int KT = static_cast<int>((kv_end + BK - 1) / BK);
 
-  load_rows<BQ, D>(qs, RP, qb, row, q0, Sq, q_vec, tid);
-  load_rows<BK, D>(ks, RP, kb, row, 0, Skv, k_vec, tid);
+  constexpr int LU = S::LOAD_UNROLL;
+  load_rows<BQ, DP, FIXED_D, LU>(qs, RP, qb, row, q0, Sq, D, q_vec, tid);
+  load_rows<BK, DP, FIXED_D, LU>(ks, RP, kb, row, 0, Skv, D, k_vec, tid);
   wg::cp_async_commit();
 
   // this thread's query i is row 64·(i/4) + 4·ty + i%4 of the block; m
@@ -429,7 +303,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t k0 = int64_t{kt} * BK;
     wg::cp_async_wait<0>();  // this thread's copies of k tile kt (and q)
     __syncthreads();  // everyone's, and the last tile's PV reads are done
-    load_rows<BK, D>(vs, D, vb, row, k0, Skv, v_vec, tid);
+    load_rows<BK, DP, FIXED_D, LU>(vs, DP, vb, row, k0, Skv, D, v_vec, tid);
     wg::cp_async_commit();
 
     // S = Q·Kᵀ for keys 16·j + tx, d in order
@@ -439,15 +313,15 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KJ; ++j) sc[i][j] = 0.0f;
 #pragma unroll D_UNROLL
-    for (int d = 0; d < D; d += 4) {
+    for (int dd = 0; dd < DL; dd += 4) {
       float4 kv[KJ];
 #pragma unroll
       for (int j = 0; j < KJ; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (16 * j + tx) * RP + d);
+        kv[j] = *reinterpret_cast<const float4*>(ks + (16 * j + tx) * RP + dd);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float4 qv = *reinterpret_cast<const float4*>(
-            qr + ((i / 4) * 64 + i % 4) * RP + d);
+            qr + ((i / 4) * 64 + i % 4) * RP + dd);
 #pragma unroll
         for (int j = 0; j < KJ; ++j) {
           float a = sc[i][j];
@@ -497,11 +371,13 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 
     wg::cp_async_wait<0>();  // this thread's copies of v tile kt
     __syncthreads();  // everyone's, every p, and the score reads of k
-    if (kt + 1 < KT) load_rows<BK, D>(ks, RP, kb, row, k0 + BK, Skv, k_vec, tid);
+    if (kt + 1 < KT)
+      load_rows<BK, DP, FIXED_D, LU>(ks, RP, kb, row, k0 + BK, Skv, D, k_vec,
+                                     tid);
     wg::cp_async_commit();
 
     // O += P·V, keys in order
-#pragma unroll 16
+#pragma unroll PV_UNROLL
     for (int kk = 0; kk < BK; ++kk) {
       const float4 p0 = *reinterpret_cast<const float4*>(ps + kk * PP + 4 * ty);
       const float4 p1 =
@@ -510,7 +386,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int g = 0; g < DJ / 4; ++g) {
         const float4 vv =
-            *reinterpret_cast<const float4*>(vs + kk * D + g * 64 + 4 * tx);
+            *reinterpret_cast<const float4*>(vs + kk * DP + g * 64 + 4 * tx);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           o[i][4 * g] = fmaf(pv[i], vv.x, o[i][4 * g]);
@@ -523,7 +399,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // epilogue: the row sums over the 16 lanes, then O / max(l, 1e-30);
-  // rows past Sq dropped
+  // rows past Sq and columns past D dropped
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const float inv_l = 1.0f / fmaxf(half_warp_sum(l[i]), 1e-30f);
@@ -531,40 +407,47 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (qi >= Sq) continue;
 #pragma unroll
     for (int g = 0; g < DJ / 4; ++g) {
-      float* p = ob + qi * row + g * 64 + 4 * tx;
-      const float4 r = make_float4(o[i][4 * g] * inv_l, o[i][4 * g + 1] * inv_l,
-                                   o[i][4 * g + 2] * inv_l,
-                                   o[i][4 * g + 3] * inv_l);
-      if (o_vec) {
-        *reinterpret_cast<float4*>(p) = r;
+      const int c = g * 64 + 4 * tx;
+      float* p = ob + qi * row + c;
+      const float r[4] = {o[i][4 * g] * inv_l, o[i][4 * g + 1] * inv_l,
+                          o[i][4 * g + 2] * inv_l, o[i][4 * g + 3] * inv_l};
+      if (o_vec) {  // D % 4 == 0: the chunk lies wholly inside D or past it
+        if (FIXED_D || c < D)
+          *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
       } else {
-        p[0] = r.x;
-        p[1] = r.y;
-        p[2] = r.z;
-        p[3] = r.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (FIXED_D || c + e < D) p[e] = r[e];
       }
     }
   }
 }
 
-template <int D>
+// D from 1 to DP: the padded width DP is the dispatch's
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
-           int64_t Sq, int64_t Skv, int64_t H, float scale, bool causal,
-           cudaStream_t s) {
-  // rows are D·4 bytes apart (a multiple of 16), so a base decides
-  const auto aligned = [](const void* p) {
-    return static_cast<int>(reinterpret_cast<uintptr_t>(p) % 16 == 0);
+           int64_t Sq, int64_t Skv, int64_t H, int D, float scale,
+           bool causal, cudaStream_t s) {
+  // rows are H·D·4 bytes apart and heads D·4, so every row lies on the
+  // 16-byte grid when the base does and D % 4 == 0
+  const auto aligned = [D](const void* p) {
+    return static_cast<int>(D % 4 == 0 &&
+                            reinterpret_cast<uintptr_t>(p) % 16 == 0);
   };
+  // D fixed at compile time at DP = 64, 128 and 192 (the header)
+  auto kernel = flash_f32<DP, false>;
+  if constexpr (DP <= 192)
+    if (D == DP) kernel = flash_f32<DP, true>;
   // per launch, so it holds on whichever device is current
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Shape<D>::SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Shape<DP>::SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>(B * H),
                   static_cast<unsigned>((Sq + BQ - 1) / BQ));
-  flash_f32<D><<<grid, THREADS, Shape<D>::SMEM_BYTES, s>>>(
+  kernel<<<grid, THREADS, Shape<DP>::SMEM_BYTES, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H,
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, D,
       scale * LOG2E, causal, aligned(q), aligned(k), aligned(v),
       aligned(out));
   return launch_status();
@@ -575,8 +458,6 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
 namespace tc {
 
 constexpr int BQ = 128;  // queries a block: two warpgroups of 64
-constexpr int THREADS = 256;
-constexpr int SMEM_LIMIT = 232448;  // the most a block may take, 227 KB
 
 // Tiles by padded head width DP, the fastest of those timed on the card
 // that fit (PERF.md §6): 64 keys a tile at DP = 64 and 192, 128 at 128, in
@@ -869,16 +750,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t B,
 
 }  // namespace tc
 
+// every D from 1 to 256 at the next padded width up, in either type, as
+// the wrapper's flash_attention.padded_width
 int dispatch_f32(const void* q, const void* k, const void* v, void* out,
                  int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D,
                  float scale, bool causal, cudaStream_t s) {
-  if (D == 64) return tiled::launch<64>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
-  if (D == 128) return tiled::launch<128>(q, k, v, out, B, Sq, Skv, H, scale, causal, s);
-  return launch(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  if (D <= 64) return tiled::launch<64>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  if (D <= 128) return tiled::launch<128>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  if (D <= 192) return tiled::launch<192>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
+  return tiled::launch<256>(q, k, v, out, B, Sq, Skv, H, D, scale, causal, s);
 }
 
-// every D from 1 to 256 at the next padded width up, as the wrapper's
-// flash_attention.padded_width
 int dispatch_bf16(const void* q, const void* k, const void* v, void* out,
                   int64_t B, int64_t Sq, int64_t Skv, int64_t H, int D,
                   float scale, bool causal, cudaStream_t s) {

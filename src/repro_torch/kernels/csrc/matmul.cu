@@ -10,10 +10,14 @@
 // the work is f32 FMA at 67 TFLOP/s.  At wide N that rate bounds it
 // ((12288,2048)@(2048,128): 6.44 GFLOP, 0.096 ms); at narrow N the
 // product has a few flops a byte and reading a(M,K) bounds it
-// ((65536,2048)@(2048,8): 0.54 GB, 0.161 ms).  Two forms, chosen in the
-// launch: the narrow one where a's rows lie on the 16-byte grid and N <=
-// SMALL_M_N (16), or N <= MAX_N (NARROW_N, 32) from FULL_M rows on (a
-// 256-row block for each of 132 SMs); the wide one otherwise.  repro_torch.bench.thresholds
+// ((65536,2048)@(2048,8): 0.54 GB, 0.161 ms); at few rows and long K,
+// the AI proxies' fully_connected ((32,2048)@(2048,2048)), reading b
+// (16.8 MB, 0.005 ms) and the FMAs (0.004 ms) weigh about the same.
+// Three forms, chosen in the launch: the narrow one where a's rows lie on
+// the 16-byte grid and N <= SMALL_M_N (16), or N <= MAX_N (NARROW_N, 32)
+// from FULL_M rows on (a 256-row block for each of 132 SMs); else the
+// split one where M <= split::MAX_M (128) and K cuts into at least two
+// slices (split::slices); the wide one otherwise.  repro_torch.bench.thresholds
 // measured the bounds: at (65536, 2048) the narrow form beat the wide
 // one at every N up to 32 (0.29-0.33 ms against 0.44); at (12288, 2048),
 // 48 blocks, it won up to N = 16 and lost at 24 and 32 (0.18 ms against
@@ -64,6 +68,28 @@
 // store, so no padded copy is made; offsets are 64-bit.  bf16 operands
 // are converted to f32 on load and the result rounded once on the store.
 //
+// Split: for few rows and long K, where the wide form's grid would leave
+// most SMs idle ((32, 2048, 2048) takes its 64 x 64 tile: 32 blocks on
+// 132 SMs, each walking all of K, half its rows zero).  A 128-thread
+// block owns a 32 x 64 tile, each thread 4 rows x 4 columns, and one of
+// S slices of K, S = min(8, 396 / tiles, K / MIN_K) (split::slices), so
+// tiles x S is up to three blocks an SM: 32 tiles x 8 slices = 256
+// blocks at (32, 2048, 2048).  A block's slabs wait on one another, so
+// more blocks an SM, not a deeper ring, hide the wait:
+// repro_torch.bench.split_tiles timed a 32 x 128 tile of 256 threads,
+// one block an SM, 1.25x slower, a ring of 3 slabs or 64-wide slabs
+// within 3 %, and a ring of 8 slabs 1.5x slower (PERF.md §6).  A slice
+// streams through a 4-stage ring of 32-wide slabs by 16-byte cp.async
+// (value by value off the grid), a's slab as it lies, its rows padded by
+// one unit, so a thread reads 4 k of each of its rows and 4 columns of b
+// for each k as 8 vector loads for 64 FMAs; it sums in registers in k
+// order.  The S blocks of a tile form a thread
+// block cluster (S <= 8, the portable size): each writes its partial tile
+// to its own shared memory, and after the cluster's barrier rank r adds
+// its share of the tile from every rank's shared memory, in rank order,
+// and stores it.  One launch, no atomics, no scratch buffer; the sums
+// are not in k order, but two calls give the same bits.
+//
 // Lanes: repro_matmul_lanes runs L independent products in one launch
 // (the population form's batched Matrix motif under torch.func.vmap).
 // blockIdx.z picks the lane, whose a, b and c start sa, sb and sc
@@ -74,6 +100,8 @@
 //
 // moe_dispatch.cu's f32 form is a loop of the same kind with its own
 // tile: its A operand, the mask stripe, is read column-major in place.
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "wgmma.cuh"  // wg::cp_async16 and its commit / wait
@@ -582,12 +610,260 @@ int launch(const T* a, const T* b, T* c, int64_t M, int64_t N, int64_t K,
 
 }  // namespace wide
 
+// ---------------------------------------------------------------------------
+// split form
+// ---------------------------------------------------------------------------
+namespace split {
+
+namespace cg = cooperative_groups;
+
+constexpr int BM = 32;         // a tile's rows
+constexpr int BN = 64;         // its columns
+constexpr int BK = 32;         // k of a slab
+constexpr int STAGES = 4;      // slabs in the ring
+constexpr int MIN_BLOCKS = 3;  // blocks an SM, for the registers
+// a thread's 4 x 4 outputs: 16 threads along a 64-column group, BM / 4
+// row groups, BN / 64 column groups
+constexpr int RG = BM / 4, CG = BN / 64;
+constexpr int THREADS = 16 * RG * CG;
+// matmul.py: SPLIT_MAX_M, SPLIT_MIN_K, SPLIT_BLOCKS and SPLIT_MAX_SLICES
+constexpr long long MAX_M = 128;
+constexpr long long MIN_K = 256;      // k a slice sums, at the least
+constexpr long long BLOCKS = 3 * 132;  // three blocks for each of 132 SMs
+constexpr long long MAX_SLICES = 8;   // the portable cluster size
+
+// The slices of K for (M, N, K): about BLOCKS blocks over the tiles, at
+// most MAX_SLICES, none shorter than MIN_K; 1 is no split.  A shape's
+// own, so a lane of a launch takes its own launch's slices.
+long long slices(long long M, long long N, long long K) {
+  const long long tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  long long s = BLOCKS / tiles;
+  if (s > MAX_SLICES) s = MAX_SLICES;
+  if (s > K / MIN_K) s = K / MIN_K;
+  return s < 1 ? 1 : s;
+}
+
+template <typename T>
+struct Smem {
+  static constexpr int PA = BK + kUnit<T>;  // a's row, padded by a unit
+  static constexpr int A = BM * PA;         // values of a slab of a
+  static constexpr int B = BK * BN;         // of b
+  static constexpr int STAGE = A + B;
+  static constexpr int RING = STAGES * STAGE * static_cast<int>(sizeof(T));
+  static constexpr int PART = BM * BN * 4;  // the partial tile, f32
+  static constexpr int BYTES = RING > PART ? RING : PART;
+};
+
+// one value global -> shared, zero where !in (src still a valid address):
+// f32 by 4-byte cp.async, bf16 through a register
+__device__ __forceinline__ void copy_value(float* dst, const float* src,
+                                           bool in) {
+  cp_async4(smem_u32(dst), src, in);
+}
+__device__ __forceinline__ void copy_value(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           bool in) {
+  *dst = in ? *src : __float2bfloat16(0.0f);
+}
+
+// slab kt of a and b -> one stage, zero past M, N and K: 16-byte units
+// where every row lies on the grid (VEC), else value by value
+template <typename T, bool VEC>
+__device__ __forceinline__ void issue(const T* a, const T* b, T* as, T* bs,
+                                      int64_t M, int64_t N, int64_t K,
+                                      int64_t row0, int64_t col0, int64_t kt,
+                                      int tid) {
+  using L = Smem<T>;
+  constexpr int V = kUnit<T>;
+  const int64_t k0 = kt * BK;
+  if constexpr (VEC) {
+    constexpr int UA = BM * BK / V, UB = BK * BN / V;
+    static_assert(UB % THREADS == 0, "slab shape");
+#pragma unroll
+    for (int u = tid; u < UA; u += THREADS) {
+      const int m = u / (BK / V), q = u % (BK / V);
+      const int64_t gm = row0 + m, gk = k0 + q * V;
+      const bool in = gm < M && gk < K;
+      wg::cp_async16(smem_u32(as + m * L::PA + q * V),
+                     in ? a + gm * K + gk : a, in);
+    }
+#pragma unroll
+    for (int i = 0; i < UB / THREADS; ++i) {
+      const int u = tid + i * THREADS;
+      const int kk = u / (BN / V), q = u % (BN / V);
+      const int64_t gk = k0 + kk, gn = col0 + q * V;
+      const bool in = gk < K && gn < N;
+      wg::cp_async16(smem_u32(bs + kk * BN + q * V),
+                     in ? b + gk * N + gn : b, in);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < BM * BK; e += THREADS) {
+      const int m = e / BK, kk = e % BK;
+      const int64_t gm = row0 + m, gk = k0 + kk;
+      const bool in = gm < M && gk < K;
+      copy_value(as + m * L::PA + kk, in ? a + gm * K + gk : a, in);
+    }
+#pragma unroll 4
+    for (int e = tid; e < BK * BN; e += THREADS) {
+      const int kk = e / BN, n = e % BN;
+      const int64_t gk = k0 + kk, gn = col0 + n;
+      const bool in = gk < K && gn < N;
+      copy_value(bs + kk * BN + n, in ? b + gk * N + gn : b, in);
+    }
+  }
+}
+
+// grid (S·row tiles, column tiles, lanes) in clusters of (S, 1, 1): block
+// x is rank x % S of tile x / S, and sums slice rank of K's slabs
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
+       int64_t M, int64_t N, int64_t K, int64_t sa, int64_t sb, int64_t sc,
+       int S) {
+  using L = Smem<T>;
+  a += blockIdx.z * sa;  // this block's lane
+  b += blockIdx.z * sb;
+  c += blockIdx.z * sc;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* const ring = reinterpret_cast<T*>(smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+
+  const int tid = threadIdx.x;
+  const int rq = 4 * ((tid / 16) % RG);              // its rows rq..+3
+  const int cn = (tid / (16 * RG)) * 64 + (tid % 16) * 4;  // columns cn..+3
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x / S) * BM;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * BN;
+  const int64_t nk = (K + BK - 1) / BK;  // slabs of the whole of K
+  const int64_t kb = nk * rank / S;      // this slice's
+  const int64_t n = nk * (rank + 1) / S - kb;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n)
+      issue<T, VEC>(a, b, ring + st * L::STAGE, ring + st * L::STAGE + L::A,
+                    M, N, K, row0, col0, kb + st, tid);
+    wg::cp_async_commit();
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int64_t t = 0; t < n; ++t) {
+    wg::cp_async_wait<STAGES - 2>();  // this thread's copies of slab t
+    __syncthreads();                  // everyone's, and slab t-1 is done
+    const int64_t nt = t + STAGES - 1;
+    if (nt < n) {
+      T* const st = ring + (nt % STAGES) * L::STAGE;
+      issue<T, VEC>(a, b, st, st + L::A, M, N, K, row0, col0, kb + nt, tid);
+    }
+    wg::cp_async_commit();
+
+    const T* const as = ring + (t % STAGES) * L::STAGE;
+    const T* const bs = as + L::A;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      float av[4][4], bv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) narrow::load4(as + (rq + i) * L::PA + k4, av[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) narrow::load4(bs + (k4 + j) * BN + cn, bv[j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][e] = fmaf(av[i][j], bv[j][e], acc[i][e]);
+    }
+  }
+
+  // the partial tile into this block's own shared memory, over the ring
+  wg::cp_async_wait<0>();
+  __syncthreads();
+  float* const part = reinterpret_cast<float*>(smem);  // [BM][BN]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(part + (rq + i) * BN + cn) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  cluster.sync();  // every slice's partial tile is written
+
+  // rank r adds its share of the tile's 4-column units over the ranks, in
+  // rank order, and stores it
+  constexpr int UNITS = BM * BN / 4;
+  const int u1 = UNITS * (rank + 1) / S;
+  for (int u = UNITS * rank / S + tid; u < u1; u += THREADS) {
+    float4 p[MAX_SLICES];  // every rank's unit u, the reads all in flight
+#pragma unroll
+    for (int r = 0; r < MAX_SLICES; ++r)
+      if (r < S)
+        p[r] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, r) + 4 * u);
+    float4 sum = p[0];
+#pragma unroll
+    for (int r = 1; r < MAX_SLICES; ++r) {
+      if (r < S) {
+        sum.x += p[r].x;
+        sum.y += p[r].y;
+        sum.z += p[r].z;
+        sum.w += p[r].w;
+      }
+    }
+    const int64_t gm = row0 + u / (BN / 4), gn = col0 + (u % (BN / 4)) * 4;
+    if (gm >= M) continue;
+    T* const dst = c + gm * N + gn;
+    if constexpr (VEC && std::is_same_v<T, float>) {
+      if (gn < N) *reinterpret_cast<float4*>(dst) = sum;  // N % 4 == 0
+    } else {
+      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (gn + e < N) dst[e] = from_f32<T>(v[e]);
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its tile
+}
+
+template <typename T, bool VEC>
+int launch(const T* a, const T* b, T* c, int64_t M, int64_t N, int64_t K,
+           const Lanes& ln, cudaStream_t s) {
+  const int S = static_cast<int>(slices(M, N, K));
+  constexpr int bytes = Smem<T>::BYTES;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(S * ((M + BM - 1) / BM)),
+                     static_cast<unsigned>((N + BN - 1) / BN),
+                     static_cast<unsigned>(ln.n));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = static_cast<unsigned>(S);
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel<T, VEC>, a, b, c, M,
+                                             N, K, ln.sa, ln.sb, ln.sc, S);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_status();
+}
+
+}  // namespace split
+
 bool on_grid(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// form: 0 picks from M, N and a's alignment (see the note), 1 forces the
-// wide form, 2 the narrow one (N <= MAX_N, a's rows on the 16-byte grid).
-// An operand is on the grid when every lane's copy is: its base and its
-// lane stride.
+// form: 0 picks from M, N, K and a's alignment (see the note), 1 forces
+// the wide form, 2 the narrow one (N <= MAX_N, a's rows on the 16-byte
+// grid), 3 the split one.  An operand is on the grid when every lane's
+// copy is: its base and its lane stride.
 template <typename T>
 int launch(int form, const void* a, const void* b, void* c, int64_t M,
            int64_t N, int64_t K, const Lanes& ln, cudaStream_t s) {
@@ -599,14 +875,19 @@ int launch(int form, const void* a, const void* b, void* c, int64_t M,
   const bool rows_a = on_grid(a) && K % V == 0 && ln.sa % V == 0;
   const bool narrow_n =
       N <= narrow::SMALL_M_N || (N <= narrow::MAX_N && M >= narrow::FULL_M);
-  if (form == 0) form = rows_a && narrow_n ? 2 : 1;
+  if (form == 0)
+    form = rows_a && narrow_n ? 2
+           : M <= split::MAX_M && split::slices(M, N, K) > 1 ? 3 : 1;
   if (form == 2) {
     if (N > narrow::MAX_N || !rows_a) return -1;
     return narrow::launch<T>(at, bt, ct, M, N, K, ln, s);
   }
-  if (form != 1) return -1;
   const bool vec = rows_a && on_grid(b) && on_grid(c) && N % V == 0 &&
                    ln.sb % V == 0 && ln.sc % V == 0;
+  if (form == 3)
+    return vec ? split::launch<T, true>(at, bt, ct, M, N, K, ln, s)
+               : split::launch<T, false>(at, bt, ct, M, N, K, ln, s);
+  if (form != 1) return -1;
   return vec ? wide::launch<T, true>(at, bt, ct, M, N, K, ln, s)
              : wide::launch<T, false>(at, bt, ct, M, N, K, ln, s);
 }

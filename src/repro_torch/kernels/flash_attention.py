@@ -9,11 +9,11 @@ single-slice kernel.  A signature profile sees one dot-class op with
 4·D flops for every (query, key) pair the mask keeps.  A tensor on the
 CPU runs the plain version (``ref.flash_attention``); a CUDA tensor
 launches the kernel or raises.  :func:`form` names the kernel's form
-(tensor cores for bf16 at every head width, compiled for the widths
-``WGMMA_D`` with a narrower head zero-padded to the next one up
-(:func:`padded_width`); register-tiled FMA for f32 at head width 64 or
-128; SIMT FMA for f32 at any other; the kernel picks its own load widths)
-and ``flash_attention.forms`` counts launches per form.
+(tensor cores for bf16, register-tiled FMA for f32, each at every head
+width, compiled for the widths ``WGMMA_D`` with a narrower head
+zero-padded to the next one up (:func:`padded_width`); the kernel picks
+its own load widths) and ``flash_attention.forms`` counts launches per
+form.
 
 The causal mask keeps ``k_idx <= q_idx`` with both indices counted from
 0, top-left aligned as in the reference, also when ``Sq != Skv``.
@@ -33,20 +33,20 @@ NEG_INF = -1e30
 L_FLOOR = 1e-30
 #: widest head the kernel takes
 MAX_D = 256
-#: the widths the tensor-core form (bf16) is compiled for, and the head
-#: widths of the tiled form (f32)
+#: the widths the tensor-core form (bf16) and the tiled form (f32) are
+#: compiled for
 WGMMA_D = (64, 128, 192, 256)
-TILED_D = (64, 128)
-FORMS = ("wgmma", "tiled", "simt")
+TILED_D = WGMMA_D
+FORMS = ("wgmma", "tiled")
 #: query tile of each form; the grid's second dimension counts them
-BQ = {"wgmma": 128, "tiled": 128, "simt": 64}
+BQ = {"wgmma": 128, "tiled": 128}
 MAX_GRID_Y = 65535
 MAX_GRID_X = (1 << 31) - 1
 
 
 def padded_width(d: int) -> int:
-    """The width of ``WGMMA_D`` a bf16 head of width d runs at: the
-    narrowest one that holds it, the columns past d zero-filled."""
+    """The compiled width a head of width d runs at, in either type:
+    the narrowest one that holds it, the columns past d zero-filled."""
     if not 1 <= d <= MAX_D:
         raise ValueError(f"flash_attention takes head widths 1..{MAX_D}, "
                          f"got {d}")
@@ -54,13 +54,10 @@ def padded_width(d: int) -> int:
 
 
 def form(q: torch.Tensor) -> str:
-    """The kernel form a CUDA call on q runs: "wgmma" (bf16 at any head
-    width, tensor cores, 128 queries a block), "tiled" (f32 at 64 or 128:
-    FMA, 128 queries a block, 8 a thread in registers) or "simt" (f32 at
-    any other width: FMA, 64 queries a block)."""
-    if q.dtype == torch.bfloat16:
-        return "wgmma"
-    return "tiled" if q.shape[-1] in TILED_D else "simt"
+    """The kernel form a CUDA call on q runs, at any head width:
+    "wgmma" (bf16, tensor cores, 128 queries a block) or "tiled" (f32:
+    FMA, 128 queries a block, 8 a thread in registers)."""
+    return "wgmma" if q.dtype == torch.bfloat16 else "tiled"
 
 
 def kept_pairs(sq: int, skv: int, causal: bool) -> int:

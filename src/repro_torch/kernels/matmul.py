@@ -5,10 +5,12 @@ Wraps ``csrc/matmul.cu`` (which replaces the Pallas kernel in
 signature profile sees one dot-class op with 2·M·N·K flops.  A tensor on
 the CPU runs the plain version (``ref.matmul``); a CUDA tensor launches
 the kernel or raises.  :func:`form` names the kernel's form (the narrow
-one-pass form at small N, the wide FMA tile loop above; the kernel picks
-its own tile and load widths) and ``matmul.forms`` counts launches per
-form.  Under ``torch.func.vmap`` the op's batching rule runs all lanes in
-one launch: lanes of x alone fold into M, lanes of y take the kernel's
+one-pass form at small N; the split form, K cut into slices summed by a
+thread block cluster, at few rows and long K; the wide FMA tile loop
+otherwise; the kernel picks its own tile and load widths) and
+``matmul.forms`` counts launches per form.  Under ``torch.func.vmap`` the
+op's batching rule runs all lanes in one launch: lanes of x alone fold
+into M, unless a lane takes the split form, lanes of y take the kernel's
 lane axis (:func:`matmul_lanes`).
 """
 from __future__ import annotations
@@ -24,19 +26,42 @@ DTYPES = (torch.float32, torch.bfloat16)
 NARROW_N = 32
 NARROW_FULL_M = 256 * 132
 NARROW_SMALL_M_N = 16
-FORMS = ("narrow", "wide")
-#: the C launch's form codes: 0 picks from M and N as :func:`form` does
-FORM_CODES = {"auto": 0, "wide": 1, "narrow": 2}
+#: the split form's rows at most, its tile, the least K a slice sums, the
+#: blocks it aims for (three for each of an H100's 132 SMs), and the most
+#: slices (the portable cluster size).  Mirrored in ``csrc/matmul.cu``'s
+#: ``split``.
+SPLIT_MAX_M = 128
+SPLIT_TILE = (32, 64)
+SPLIT_MIN_K = 256
+SPLIT_BLOCKS = 3 * 132
+SPLIT_MAX_SLICES = 8
+FORMS = ("narrow", "wide", "split")
+#: the C launch's form codes: 0 picks from M, N and K as :func:`form` does
+FORM_CODES = {"auto": 0, "wide": 1, "narrow": 2, "split": 3}
+
+
+def split_slices(m: int, n: int, k: int) -> int:
+    """The slices of K the split form cuts (M, N, K) into: about
+    ``SPLIT_BLOCKS`` blocks over its tiles, at most ``SPLIT_MAX_SLICES``,
+    none shorter than ``SPLIT_MIN_K``; 1 is no split."""
+    bm, bn = SPLIT_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    return max(1, min(SPLIT_BLOCKS // tiles, SPLIT_MAX_SLICES,
+                      k // SPLIT_MIN_K))
 
 
 def form(x: torch.Tensor, y: torch.Tensor) -> str:
     """The kernel form a CUDA call on x (M, K) @ y (K, N) runs: "narrow"
-    (one pass over x, whose rows must lie on the 16-byte grid) or "wide"
-    (the FMA tile loop)."""
+    (one pass over x, whose rows must lie on the 16-byte grid), "split"
+    (few rows, K cut into at least two slices) or "wide" (the FMA tile
+    loop)."""
     (m, k), n = x.shape, y.shape[1]
     rows = x.data_ptr() % 16 == 0 and (k * x.element_size()) % 16 == 0
     narrow = n <= NARROW_SMALL_M_N or (n <= NARROW_N and m >= NARROW_FULL_M)
-    return "narrow" if rows and narrow else "wide"
+    if rows and narrow:
+        return "narrow"
+    return "split" if m <= SPLIT_MAX_M and split_slices(m, n, k) > 1 \
+        else "wide"
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -68,7 +93,7 @@ def launch_matmul(x: torch.Tensor, y: torch.Tensor,
     """The kernel on CUDA tensors x (M, K) or (L, M, K) and y (K, N) or
     (L, K, N) in form ``kind`` ("auto" picks as :func:`form` says;
     "narrow" takes N <= ``NARROW_N`` and x's rows on the 16-byte grid
-    only).  A 2-D operand is shared by every lane; the kernel's lane axis
+    only; "split" cuts K into :func:`split_slices` slices).  A 2-D operand is shared by every lane; the kernel's lane axis
     (``blockIdx.z``) runs each lane with the tile, form and k order of a
     one-lane launch.  Returns (M, N), or (L, M, N) when an operand has
     lanes."""
@@ -109,17 +134,29 @@ _build.define_op("matmul(Tensor x, Tensor y) -> Tensor", _matmul_op,
                  meta=lambda x, y: x.new_empty((x.shape[0], y.shape[1])))
 
 
+def folds(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether lanes of x (L, M, K) alone fold into M against y (K, N):
+    so where a lane runs the narrow or the wide form, which sum each
+    output in k order whatever M is; a lane on the split form, whose
+    slices follow M, takes the kernel's lane axis, so that it keeps its
+    own launch's bits."""
+    return form(x[0], y) != "split"
+
+
 def _matmul_vmap(info, in_dims, x, y):
-    """vmap of the op: lanes of x alone fold into M (one product); lanes
-    of y take the kernel's lane axis (:func:`matmul_lanes`)."""
+    """vmap of the op: lanes of x alone fold into M (one product) where
+    :func:`folds` says so; other lanes take the kernel's lane axis
+    (:func:`matmul_lanes`)."""
     dx, dy = in_dims
     if dx is not None:
         x = x.movedim(dx, 0)
     if dy is None:
-        lanes, M, K = x.shape
-        out = torch.ops.repro_torch.matmul(
-            x.reshape(lanes * M, K).contiguous(), y)
-        return out.reshape(lanes, M, -1), 0
+        x = x.contiguous()
+        if folds(x, y):
+            lanes, M, K = x.shape
+            out = torch.ops.repro_torch.matmul(x.reshape(lanes * M, K), y)
+            return out.reshape(lanes, M, -1), 0
+        return matmul_lanes(x, y.contiguous()), 0
     return matmul_lanes(x.contiguous(), y.movedim(dy, 0).contiguous()), 0
 
 

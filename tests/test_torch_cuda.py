@@ -70,6 +70,16 @@ MATMUL_FORM_CASES = [(12288, 64, 128, False), (32768, 64, 128, False),
                      (tmm.NARROW_FULL_M, 64, tmm.NARROW_N, False),
                      (tmm.NARROW_FULL_M, 64, tmm.NARROW_N + 1, False),
                      (4096, 256, 8, True)]
+# (M, K, N, base off the grid): the split form — M = 1, 17, 32, 64 (two
+# row tiles) and 128 (four) at long K, the fewest slices (K = 512), N and
+# K off the 16-byte unit, a ragged last column tile, a ragged last row
+# tile (M = 100), and bases off the grid
+MATMUL_SPLIT_CASES = [(32, 2048, 2048, False), (1, 2048, 2048, False),
+                      (17, 2048, 2048, False), (64, 2048, 2048, False),
+                      (128, 2048, 2048, False), (100, 1024, 500, False),
+                      (32, 512, 1000, False), (17, 2050, 2047, False),
+                      (33, 1027, 300, False), (32, 2048, 2048, True),
+                      (1, 1024, 130, True)]
 
 
 @pytest.mark.cuda
@@ -86,6 +96,23 @@ def test_cuda_matmul_forms_match_plain(cuda_device, dtype):
         calls[tmm.form(x, y)] += 1
     assert tops.matmul.forms == calls
     assert tops.launch_counts()["matmul"] == len(MATMUL_FORM_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_matmul_split_matches_plain_and_repeats(cuda_device, dtype):
+    # K's slices are summed by rank, not in k order, but in a fixed order:
+    # two calls on the same input give the same bits
+    tops.reset_launches()
+    for m, k, n, off in MATMUL_SPLIT_CASES:
+        x = _on_card(cuda_device, 1, (m, k), dtype, off)
+        y = _on_card(cuda_device, 2, (k, n), dtype, off)
+        assert tmm.form(x, y) == "split", (m, k, n, off)
+        got = tops.matmul(x, y)
+        torch.testing.assert_close(got.float(), tref.matmul(x, y).float(),
+                                   **MATMUL_TOL[dtype])
+        assert torch.equal(tops.matmul(x, y), got), (m, k, n, off)
+    assert tops.matmul.forms["split"] == 2 * len(MATMUL_SPLIT_CASES)
 
 
 D_ONE = trm.ONE_LAUNCH_BYTES // 16
@@ -180,10 +207,14 @@ def _vmap(fn, *args, in_dims=0):
 
 # (lanes, M, K, N, in_dims): lanes of y alone (x shared, stride 0), of
 # both, of x alone (folded into M); the narrow form (N <= 16) and the wide
-# one, K off the 16-byte unit
+# one, K off the 16-byte unit; the split form with lanes of both and of x
+# alone (which take the lane axis, since folded they would split K
+# otherwise)
 LANE_MATMUL_CASES = [(2, 300, 64, 8, (None, 0)), (32, 300, 64, 8, (0, 0)),
                      (3, 129, 65, 257, (0, 0)), (32, 96, 128, 128, (0, 0)),
-                     (4, 200, 48, 24, (0, None))]
+                     (4, 200, 48, 24, (0, None)),
+                     (2, 32, 2048, 2048, (0, 0)),
+                     (4, 32, 2048, 2048, (0, None))]
 
 
 @pytest.mark.cuda
@@ -262,14 +293,14 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
-    # bf16 takes the wgmma form at every width: 64, 128, 192 and 256, and
-    # 96, 80 (rows on the 16-byte grid) and 100 (off it) padded to 128, 32
-    # and 33 (odd) to 64; f32 the tiled form (128 queries a block) at 64
-    # and 128 and the generic SIMT form at every other width; ragged Skv;
-    # Sq below and above Skv under the causal mask; Sq past two query
-    # tiles; Skv past Sq; bases off the 16-byte grid (scalar loads)
+    # bf16 takes the wgmma form and f32 the tiled one (128 queries a block
+    # each) at every width: 64, 128, 192 and 256, and 96, 80 (rows on the
+    # 16-byte grid) and 100 (off it) padded to 128, 32 and 33 (odd) to
+    # 64; ragged Skv; Sq below and above Skv under the causal mask; Sq
+    # past two query tiles; Skv past Sq; bases off the 16-byte grid
+    # (scalar loads)
     tops.reset_launches()
-    calls = {"wgmma": 0, "tiled": 0, "simt": 0}
+    calls = {"wgmma": 0, "tiled": 0}
     cases = [((2, 130, 4, 64), (2, 130, 4, 64), 0),
              ((1, 257, 2, 128), (1, 257, 2, 128), 0),
              ((1, 100, 2, 96), (1, 100, 2, 96), 0),
@@ -284,6 +315,8 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
              ((1, 130, 2, 192), (1, 257, 2, 192), 1),
              ((1, 257, 2, 256), (1, 257, 2, 256), 0),
              ((1, 130, 2, 256), (1, 257, 2, 256), 0),
+             ((1, 300, 2, 256), (1, 200, 2, 256), 0),
+             ((1, 257, 2, 256), (1, 257, 2, 256), 1),
              ((2, 130, 4, 32), (2, 130, 4, 32), 0),
              ((1, 257, 2, 80), (1, 257, 2, 80), 0),
              ((1, 130, 2, 100), (1, 200, 2, 100), 0),
@@ -301,14 +334,11 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype):
                 **FLASH_TOL[dtype])
             calls[tfa.form(q)] += 1
     assert tops.flash_attention.forms == calls
-    # bf16 took the tensor cores at every width; f32 the tiled form at 64
-    # and 128, the generic SIMT form elsewhere
-    tiled = 2 * sum(qs[-1] in (64, 128) for qs, _, _ in cases)
+    # bf16 took the tensor cores at every width, f32 the tiled form
     if dtype == "bfloat16":
-        assert calls == {"wgmma": 2 * len(cases), "tiled": 0, "simt": 0}
+        assert calls == {"wgmma": 2 * len(cases), "tiled": 0}
     else:
-        assert calls == {"wgmma": 0, "tiled": tiled,
-                         "simt": 2 * len(cases) - tiled}
+        assert calls == {"wgmma": 0, "tiled": 2 * len(cases)}
 
 
 @pytest.mark.cuda

@@ -16,6 +16,7 @@ import torch
 
 from torch_parity import np_rand, to_torch
 
+from repro_torch.bench import split_tiles
 from repro_torch.core.signature import KERNEL_OPS, profile_call
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitonic_sort as tbs
@@ -151,6 +152,97 @@ def test_matmul_narrow_bounds_match_the_source():
     assert found and 256 * int(found.group(1)) == tmm.NARROW_FULL_M
 
 
+@pytest.mark.parametrize("m,k,n,form,slices", [
+    (32, 2048, 2048, "split", 8),   # the AI proxies' fully_connected
+    (1, 2048, 2048, "split", 8),
+    (17, 2048, 2048, "split", 8),
+    (64, 2048, 2048, "split", 6),   # two row tiles
+    (128, 2048, 2048, "split", 3),  # four
+    (129, 2048, 2048, "wide", 2),   # past the split form's rows
+    (32, 512, 2048, "split", 2),    # K for two slices at the least
+    (32, 511, 2048, "wide", 1),
+    (32, 2048, 12672, "split", 2),  # 198 tiles: two slices of each
+    (32, 2048, 12673, "wide", 1),
+    (32, 2050, 2047, "split", 8),   # N and K off the 16-byte unit
+    (8192, 2048, 128, "wide", 1),   # K-means' shapes keep their forms
+    (12288, 2048, 128, "wide", 1),
+    (32768, 2048, 128, "wide", 1),
+    (4096, 64, 32, "wide", 1),
+    (64, 512, 16, "narrow", 2),     # a narrow N takes the narrow form
+    (32, 2048, 8, "narrow", 8),
+])
+def test_matmul_split_form_for_few_rows_and_long_k(m, k, n, form, slices):
+    assert tmm.split_slices(m, n, k) == slices
+    assert tmm.form(torch.empty(m, k), torch.empty(k, n)) == form
+    # the split form takes rows off the 16-byte grid too; a narrow N there
+    # goes to it where K cuts, else to the wide form
+    off_grid = torch.empty(m * k + 1)[1:].view(m, k)
+    want = "split" if m <= tmm.SPLIT_MAX_M and slices > 1 else "wide"
+    assert tmm.form(off_grid, torch.empty(k, n)) == want
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (64, 8, 1), (64, 8, 17), (12288, 8, 32), (65536, 8, 33), (64, 67, 8),
+    (1000, 512, 16), (1000, 512, 17), (4099, 67, 8)])
+def test_matmul_narrow_cases_never_split(m, k, n):
+    assert tmm.form(torch.empty(m, k), torch.empty(k, n)) != "split"
+
+
+def test_matmul_split_bounds_match_the_source():
+    src = (_build.CSRC / "matmul.cu").read_text()
+    split = src.split("namespace split {", 1)[1].split("}  // namespace split",
+                                                      1)[0]
+    for name, want in (("MAX_M", tmm.SPLIT_MAX_M),
+                       ("MIN_K", tmm.SPLIT_MIN_K),
+                       ("MAX_SLICES", tmm.SPLIT_MAX_SLICES)):
+        found = re.search(rf"constexpr long long {name} = (\d+);", split)
+        assert found and int(found.group(1)) == want, name
+    found = re.search(r"constexpr long long BLOCKS = (\d+) \* (\d+);", split)
+    assert found and int(found.group(1)) * int(found.group(2)) == \
+        tmm.SPLIT_BLOCKS
+    tile = tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               split).group(1)) for name in ("BM", "BN"))
+    assert tile == tmm.SPLIT_TILE
+    # the form codes the wrapper passes are the launch's
+    launch = src.split("int launch(int form,", 1)[1]
+    assert "form == 3)\n    return vec ? split::launch" in launch
+    assert "form == 2) {" in launch and "if (form != 1) return -1;" in launch
+    assert tmm.FORM_CODES == {"auto": 0, "wide": 1, "narrow": 2, "split": 3}
+    assert set(tmm.FORMS) == set(tmm.FORM_CODES) - {"auto"}
+
+
+@pytest.mark.parametrize("lanes,m,k,n,fold", [
+    (4, 32, 2048, 2048, False),   # each lane splits K: the lane axis
+    (3, 64, 2048, 2048, False),   # folded, 192 rows would go wide
+    (4, 300, 64, 128, True),      # the wide form sums in k order: folds
+    (4, 16, 64, 8, True),         # the narrow form likewise
+    (4, 8, 300, 2048, True),      # one slice a lane: wide, as the fold
+    (3, 33, 64, 24, True),
+])
+def test_matmul_vmap_folds_lanes_of_x_unless_they_split(monkeypatch, lanes,
+                                                        m, k, n, fold):
+    from repro_torch.core.evaluator import no_vmap_fallback
+
+    x, y = _t(11, (lanes, m, k)), _t(12, (k, n))
+    assert tmm.folds(x, y) == fold
+    assert (tmm.form(x[0], y) == "split") == (not fold)
+    if not fold:  # folded, the product would take another form
+        assert tmm.form(x.reshape(lanes * m, k), y) != "split" or (
+            tmm.split_slices(lanes * m, n, k) != tmm.split_slices(m, n, k))
+    seen = []
+    lanes_fn = tmm.matmul_lanes
+    monkeypatch.setattr(tmm, "matmul_lanes",
+                        lambda a, b: seen.append(a.shape) or lanes_fn(a, b))
+    with no_vmap_fallback():
+        got = torch.func.vmap(tops.matmul, in_dims=(0, None))(x, y)
+    # folded: the op once on (L·M, K); else one lane-axis call on (L, M, K)
+    assert seen == ([(lanes * m, k)] if fold else [(lanes, m, k)])
+    # (bit-equal lanes are the kernel's property: the cuda tests hold it)
+    for j in range(lanes):
+        torch.testing.assert_close(got[j], tref.matmul(x[j], y), rtol=1e-5,
+                                   atol=1e-4)
+
+
 D_ONE = trm.ONE_LAUNCH_BYTES // 16       # four f32 rows of this length
 D_ROW = trm.ONE_LAUNCH_ROW_BYTES // 4    # one f32 row of this length
 
@@ -208,3 +300,43 @@ def test_rmsnorm_on_the_cpu_counts_no_form():
     tops.rmsnorm(torch.randn(4, 128), torch.randn(128))
     assert tops.rmsnorm.forms == dict.fromkeys(trm.RMSNORM_FORMS, 0)
     assert tops.launch_counts()["rmsnorm"] == 0
+
+
+@pytest.mark.parametrize("name", sorted(split_tiles.VARIANTS))
+def test_split_variants_change_only_their_constants(name):
+    # each copy repro_torch.bench.split_tiles times differs from the tree
+    # in the split namespace's constant lines it names, and nowhere else
+    src = (_build.CSRC / "matmul.cu").read_text()
+    change = split_tiles.VARIANTS[name]
+    got = split_tiles.variant_source(src, change)
+    changed = [(a, b) for a, b in zip(src.splitlines(), got.splitlines())
+               if a != b]
+    assert len(got.splitlines()) == len(src.splitlines())
+    split = src.split("namespace split {")[1].split("}  // namespace split")[0]
+    want = []
+    for line in split.splitlines():
+        for const, value in change.items():
+            m = re.match(rf"(constexpr (?:int|long long) {const} = )([^;]*);",
+                         line)
+            if m and m.group(2) != str(value):
+                want.append((line, line.replace(m.group(0),
+                                                f"{m.group(1)}{value};", 1)))
+    assert changed == want
+    assert bool(changed) == bool(change)
+
+
+def test_split_variants_refuse_a_constant_the_source_lacks():
+    src = (_build.CSRC / "matmul.cu").read_text()
+    with pytest.raises(ValueError, match="NO_SUCH"):
+        split_tiles.variant_source(src, {"NO_SUCH": 3})
+    # STAGES is also a constant of the narrow form: only the split one moves
+    got = split_tiles.variant_source(src, {"STAGES": 3})
+    assert got.split("namespace split {")[0] == src.split(
+        "namespace split {")[0]
+
+
+def test_split_bench_refuses_a_host_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        split_tiles.main()
