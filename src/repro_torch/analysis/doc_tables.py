@@ -25,6 +25,9 @@ P_ROW_RE = re.compile(r"^\|\s*`(\w+)`\s*\|\s*([\w-]+)\s*\|")
 #: canonical headings, one place
 P_TABLE_HEADING = "## The structural-vs-lifted P-field table"
 SPAN_TABLE_HEADING = "## The span-kind table"
+RUN_SPAN_TABLE_HEADING = "## The port's run-span table"
+#: the port's own observability document, beside the reference's
+PORT_OBS_DOC = "PORT_OBSERVABILITY.md"
 EVENT_TABLE_HEADING = "## The instant-event table"
 METRIC_NAME_HEADING = "## The metric-name table"
 RULE_TABLE_HEADING = "## The rule table"
@@ -82,7 +85,10 @@ def observability_names(doc: Path) -> Dict[str, Tuple[str, ...]]:
     """The telemetry-name contract: documented span kinds, instant-event
     kinds and registered metric names.  The metric-name table may be
     empty (no fixed metric names registered from ``src/`` yet) but the
-    heading must exist — the table is where a new name gets declared."""
+    heading must exist — the table is where a new name gets declared.
+    The port's run spans (:data:`RUN_SPAN_TABLE_HEADING` of
+    :data:`PORT_OBS_DOC` beside ``doc``) are span names too, after the
+    span kinds; a tree without that document has none."""
     out: Dict[str, Tuple[str, ...]] = {}
     for key, heading in (("span", SPAN_TABLE_HEADING),
                          ("event", EVENT_TABLE_HEADING),
@@ -90,6 +96,11 @@ def observability_names(doc: Path) -> Dict[str, Tuple[str, ...]]:
         names = tuple(n for n in table_names(doc, heading)
                       if n not in _OBS_HEADER_CELLS)
         out[key] = names
+    port = doc.with_name(PORT_OBS_DOC)
+    if port.is_file():
+        out["span"] += tuple(n for n in table_names(port,
+                                                    RUN_SPAN_TABLE_HEADING)
+                             if n not in _OBS_HEADER_CELLS)
     return out
 
 

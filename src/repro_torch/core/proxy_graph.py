@@ -12,6 +12,11 @@ input leaf in name+shape+dtype is forwarded directly; every remaining
 input is *data-chained* — perturbed by a checksum of the upstream outputs
 — so each node depends on its upstream nodes' results.
 
+A call is a ``proxy.run`` span of the process's default telemetry hub,
+and each node's input generation, forwarding (with the checksum
+perturbation) and apply a ``proxy.inputs``, ``proxy.forward`` and
+``proxy.apply`` span inside it (``docs/PORT_OBSERVABILITY.md``).
+
 Under an active mesh (:func:`repro_torch.distributed.sharding.use_mesh`)
 each node's generated inputs are placed on it (:func:`_shard_batch`), so
 the motifs run as DTensors and the profile carries the collectives their
@@ -187,36 +192,50 @@ class ProxyBenchmark:
 
         def run(seed: int, lifted: Optional[torch.Tensor] = None,
                 max_reps: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+            # core modules import nothing of repro_torch.runtime at module
+            # level; the hub is the process default at each call
+            from repro_torch.runtime.telemetry import get_default
+
+            hub = get_default()
             if lifted is not None and lift_reps and max_reps is None:
                 # outside vmap the host can read the counts itself
                 max_reps = [int(r) for r in
                             lifted[:, LIFT_REPEATS].tolist()]
             outputs: Dict[str, Any] = {}
-            for i, node in enumerate(order):
-                motif = get_motif(node.motif)
-                p_run = node.p
-                reps = cap = None
-                if lifted is not None:
-                    if lift_data:
-                        p_run = p_run.replace(
-                            sparsity=lifted[i, LIFT_SPARSITY],
-                            dist_scale=lifted[i, LIFT_SCALE],
-                            zipf_alpha=lifted[i, LIFT_ZIPF])
-                    if lift_reps:
-                        reps, cap = lifted[i, LIFT_REPEATS], max_reps[i]
-                inputs = _shard_batch(
-                    motif.make_inputs(p_run, derive_seed(seed, i), dev))
-                if node.deps:
-                    _, inputs = _forward_intermediate(
-                        inputs, [outputs[d] for d in node.deps])
-                    eps = torch.zeros((), dtype=torch.float32, device=dev)
-                    for d in node.deps:
-                        eps = eps + _tree_checksum(outputs[d])
-                    inputs = _tree_perturb(inputs, eps)
-                outputs[node.id] = motif.weighted_apply_dynamic(
-                    p_run, inputs, node.variant, reps, cap)
-            # an SPMD program returns no pending partial sums
-            return settle(outputs) if current_mesh() is not None else outputs
+            with hub.span("proxy.run"):
+                for i, node in enumerate(order):
+                    motif = get_motif(node.motif)
+                    p_run = node.p
+                    reps = cap = None
+                    if lifted is not None:
+                        if lift_data:
+                            p_run = p_run.replace(
+                                sparsity=lifted[i, LIFT_SPARSITY],
+                                dist_scale=lifted[i, LIFT_SCALE],
+                                zipf_alpha=lifted[i, LIFT_ZIPF])
+                        if lift_reps:
+                            reps, cap = lifted[i, LIFT_REPEATS], max_reps[i]
+                    with hub.span("proxy.inputs", node=node.id,
+                                  motif=node.motif):
+                        inputs = _shard_batch(motif.make_inputs(
+                            p_run, derive_seed(seed, i), dev))
+                    with hub.span("proxy.forward", node=node.id):
+                        if node.deps:
+                            _, inputs = _forward_intermediate(
+                                inputs, [outputs[d] for d in node.deps])
+                            eps = torch.zeros((), dtype=torch.float32,
+                                              device=dev)
+                            for d in node.deps:
+                                eps = eps + _tree_checksum(outputs[d])
+                            inputs = _tree_perturb(inputs, eps)
+                    with hub.span("proxy.apply", node=node.id,
+                                  motif=node.motif, variant=node.variant):
+                        outputs[node.id] = motif.weighted_apply_dynamic(
+                            p_run, inputs, node.variant, reps, cap)
+                # an SPMD program returns no pending partial sums
+                if current_mesh() is not None:
+                    outputs = settle(outputs)
+            return outputs
 
         return run
 

@@ -384,7 +384,10 @@ class _Profiler(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if getattr(_SHAPE_INFERENCE, "depth", 0) or self.muted:
+        # a profiler range (a live telemetry span while torch's profiler
+        # records) is not the run's work
+        if (getattr(_SHAPE_INFERENCE, "depth", 0) or self.muted
+                or func.namespace == "profiler"):
             return out
         if self.live is not None:
             for t in _tensors(out):
@@ -754,11 +757,22 @@ class CapturedGraph:
     :meth:`close` (or leaving the ``with`` block) frees the graph and
     gives its memory pool back to the device.  Raises
     :class:`NotCaptured` when the capture fails; the capture is then
-    ended and its pool given back."""
+    ended and its pool given back.  The set-up is a ``graph.setup`` span
+    of the process's default telemetry hub, and a replay a
+    ``graph.replay``."""
 
     def __init__(self, fn: Callable[[], Any], warmup: int = 2,
                  device: Optional[torch.device] = None):
-        device = device or torch.device("cuda")
+        # core modules import nothing of repro_torch.runtime at module level
+        from repro_torch.runtime.telemetry import get_default
+
+        #: the hub is the process default at each replay
+        self._hub = get_default
+        with get_default().span("graph.setup"):
+            self._setup(fn, warmup, device or torch.device("cuda"))
+
+    def _setup(self, fn: Callable[[], Any], warmup: int,
+               device: torch.device) -> None:
         self.supply = supply = GeneratorSupply(device)
         side = _capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -806,8 +820,9 @@ class CapturedGraph:
             raise NotCaptured(f"{first} at {where_raised(failure)}") from failure
 
     def replay(self) -> None:
-        self.supply.reset()
-        self.graph.replay()
+        with self._hub().span("graph.replay"):
+            self.supply.reset()
+            self.graph.replay()
 
     def close(self) -> None:
         self.outputs = None

@@ -22,7 +22,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -63,7 +62,7 @@ SIGNATURES = {
 #: the ``repro_torch`` op namespace, owned by this module
 _LIB = torch.library.Library("repro_torch", "DEF")
 
-#: what the last build did (seconds, whether it compiled, ptxas report)
+#: what the last load did: whether it compiled, and the library's path
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -127,26 +126,28 @@ def _compile(out_dir: Path) -> str:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
-    out_dir = BUILD_ROOT / source_digest()
-    lib_path = out_dir / LIB_NAME
-    # the build runs once a process (lru_cache), at the first launch; its
-    # clock times the build for BUILD_INFO and decides no kernel's result
-    t0 = time.perf_counter()  # reprolint: ignore[trace-purity]
-    compiled = not lib_path.exists()
-    if compiled:
-        out_dir.mkdir(parents=True, exist_ok=True)
-        _compile(out_dir)
-    # reprolint: ignore[trace-purity]
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, compiled=compiled,
-                      path=str(lib_path))
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.repro_error_string.argtypes = [ctypes.c_int]
-    lib.repro_error_string.restype = ctypes.c_char_p
+    """The kernels' shared library, built on first use: once a process,
+    at the first launch, in a ``kernels.load`` span of the process's
+    default telemetry hub (``built``: whether this call compiled it)."""
+    # kernels/ imports nothing of repro_torch.runtime at module level
+    from repro_torch.runtime.telemetry import get_default
+
+    with get_default().span("kernels.load") as sp:
+        out_dir = BUILD_ROOT / source_digest()
+        lib_path = out_dir / LIB_NAME
+        compiled = not lib_path.exists()
+        sp.set(built=compiled)
+        if compiled:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            _compile(out_dir)
+        BUILD_INFO.update(compiled=compiled, path=str(lib_path))
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -25,6 +25,13 @@ profiled dispatch run (``signature.profile_call``), the port's
 counterpart of an XLA compile; ``eval.execute`` covers the wall-time
 measurement.
 
+The port's own run spans (:data:`RUN_SPAN_ATTRS`) time a frozen
+proxy's run and its set-up: the runner's phases per node, the kernels'
+library load and a CUDA graph's set-up and replays.  While torch's
+profiler records, a live hub's span also opens a
+``torch.profiler.record_function`` range of its name, so the span sits
+in the profiler's trace on its clock, beside the kernels it launched.
+
 Disabled by default: the module-level :data:`NULL` hub is a strict
 no-op — ``span()`` returns a shared singleton context manager, no lock
 is acquired — so instrumented paths cost almost nothing when tracing is
@@ -43,6 +50,8 @@ import time
 from collections import OrderedDict, deque
 from math import ceil
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 #: bump when the exported trace layout (event fields, args contract)
 #: changes; recorded in the exported file's ``metadata`` block.
@@ -71,6 +80,21 @@ SPAN_ATTRS: "OrderedDict[str, Tuple[str, ...]]" = OrderedDict((
 
 #: the span names alone, in table order
 SPAN_KINDS: Tuple[str, ...] = tuple(SPAN_ATTRS)
+
+#: the port's run spans -> required attributes
+#: (``docs/PORT_OBSERVABILITY.md``, "The port's run-span table"): a frozen
+#: proxy's run and its set-up, which the reference's table has no
+#: counterpart of.  Each site resolves the process default hub
+#: (:func:`get_default`) when it runs.
+RUN_SPAN_ATTRS: "OrderedDict[str, Tuple[str, ...]]" = OrderedDict((
+    ("proxy.run", ()),
+    ("proxy.inputs", ("node", "motif")),
+    ("proxy.forward", ("node",)),
+    ("proxy.apply", ("node", "motif", "variant")),
+    ("kernels.load", ("built",)),
+    ("graph.setup", ()),
+    ("graph.replay", ()),
+))
 
 #: instant-event kinds -> required attributes (zero-duration marks,
 #: exported as Chrome ``ph: "i"`` events).
@@ -289,16 +313,31 @@ assert tuple(_METRIC_CLASSES) == METRIC_KINDS
 # span_id, parent_id, attrs, ph).
 
 
+def _profiler_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``name``, entered,
+    while torch's profiler records; else None, and no op is dispatched:
+    the port's op profiler (``signature._Profiler``, a dispatch mode)
+    would count the range's op as the run's."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class SpanHandle:
     """A live span: context manager that records on exit.
 
     ``set(**attrs)`` merges attributes at any point before exit — how
     end-of-block facts (accepted moves, miss counts) land on a span
     opened at block entry.  Nesting is per thread: a span entered while
-    another is open on the same thread becomes its child.
+    another is open on the same thread becomes its child.  While torch's
+    profiler records, the span is also a range of the profiler's
+    (:func:`_profiler_range`).
     """
 
-    __slots__ = ("hub", "name", "attrs", "t0", "span_id", "parent_id")
+    __slots__ = ("hub", "name", "attrs", "t0", "span_id", "parent_id",
+                 "range")
 
     def __init__(self, hub: "Telemetry", name: str, attrs: Dict[str, Any]):
         self.hub = hub
@@ -307,6 +346,7 @@ class SpanHandle:
         self.t0 = 0.0
         self.span_id = 0
         self.parent_id: Optional[int] = None
+        self.range = None
 
     def set(self, **attrs) -> "SpanHandle":
         self.attrs.update(attrs)
@@ -317,11 +357,14 @@ class SpanHandle:
         stack = self.hub._stack()
         self.parent_id = stack[-1] if stack else None
         stack.append(self.span_id)
+        self.range = _profiler_range(self.name)
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1 = time.perf_counter()
+        if self.range is not None:
+            self.range.__exit__(exc_type, exc, tb)
         stack = self.hub._stack()
         if stack and stack[-1] == self.span_id:
             stack.pop()
